@@ -1,0 +1,292 @@
+"""Exact entry-ordered block walk: the cluster-walk intersector.
+
+The JAX package's ``ops/walk.py`` in PyTorch, with its two TPU kernels
+ported to CUDA (``csrc/slab_cull.cu``, ``csrc/walk.cu``). Per call:
+
+  1. coherence sort: direction octant + origin morton (``_coherence_key``,
+     from the JAX ``ops/traverse.py``), stable, with the rank/permutation
+     helpers of the JAX ``ops/binned.py``; dead rays and rays that miss
+     the mesh's root box sort to the back;
+  2. slab cull (kernel 1): [tiles, K] tile-min conservative AABB entry
+     bounds into every block;
+  3. full select: each tile's feasible blocks in entry order, plus count;
+  4. walk (kernel 2): per tile, the blocks in that order with a running
+     nearest hit, stopping once no live ray can beat the next entry bound;
+  5. un-sort the results.
+
+The result equals brute force over the mesh: every block a hit could lie
+in is walked unless a nearer hit already rules it out.
+
+Each kernel's wrapper runs the plain PyTorch version on CPU tensors and
+the CUDA kernel on CUDA tensors; there is no other fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from kdtreepathtraceroptimization_tpu_torch.ops import cluster as cl
+from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf
+from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
+from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG, intersect_aabb
+from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit
+from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import CudaKernel, check_tensor
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+SLAB_CULL = CudaKernel("slab_cull", "slab_cull", [_P, _P, _P, _P, _I, _I, _I])
+WALK = CudaKernel("walk", "walk",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
+
+# Dynamic shared memory one thread block may use on sm_90 (bytes).
+_MAX_SMEM = 232448
+# Elements of [rays, blocks] entries the plain slab cull makes at once.
+_REF_CHUNK_ELEMS = 1 << 26
+
+
+def _ray16(o, d, t0, act):
+    """[n, 16] cull features: o d t0 act invd o*invd 0 0.
+
+    invd is sign-preserving and clamped to 1e7 (axis-parallel rays): the
+    slab test then under-reports only entries far beyond any scene t,
+    and the slack in ``_slab_entry_math`` absorbs the rounding.
+    """
+    s = torch.where(d >= 0.0, 1.0, -1.0)
+    invd = s / torch.clamp_min(torch.abs(d), 1e-7)
+    z = torch.zeros((o.shape[0], 2), dtype=torch.float32, device=o.device)
+    return torch.cat(
+        [o, d, t0[:, None], act[:, None], invd, o * invd, z], dim=1)
+
+
+def _slab_entry_math(x, slab, blk, kp):
+    """[sub, 16] features + [8, K] slab table (rows lo_xyz hi_xyz) ->
+    entry [sub, K]: the conservative ray parameter at which the ray can
+    first be inside block k's AABB, BIG where infeasible."""
+    t0 = x[:, 6:7]
+    act = x[:, 7:8] > 0.0
+    tmin = torch.full((x.shape[0], kp), -BIG, dtype=torch.float32,
+                      device=x.device)
+    tmax = torch.full((x.shape[0], kp), BIG, dtype=torch.float32,
+                      device=x.device)
+    for a in range(3):
+        invd = x[:, 8 + a:9 + a]
+        oinv = x[:, 11 + a:12 + a]
+        tlo = slab[a:a + 1, :] * invd - oinv
+        thi = slab[3 + a:4 + a, :] * invd - oinv
+        tmin = torch.maximum(tmin, torch.minimum(tlo, thi))
+        tmax = torch.minimum(tmax, torch.maximum(tlo, thi))
+    slack = 1e-6 * torch.abs(tmin) + 1e-5
+    tmin = tmin - slack
+    tmax = tmax + slack
+    entry = torch.clamp_min(tmin, 0.0)
+    feasible = (
+        (tmax >= entry)
+        & (tmax > 0.0)
+        & (entry < t0)
+        & act
+        & (blk[5:6, :] >= 0.0)  # r2 >= 0: real (non-sentinel) block
+    )
+    return torch.where(feasible, entry, BIG)
+
+
+def _slab_cull_ref(x, slab, blk, tile: int):
+    """Plain slab cull: [n/tile, K] tile-min entries, a chunk of tiles at
+    a time."""
+    n = x.shape[0]
+    kp = blk.shape[1]
+    rows = max(tile, _REF_CHUNK_ELEMS // kp // tile * tile)
+    out = [
+        _slab_entry_math(x[i:i + rows], slab, blk, kp)
+        .reshape(-1, tile, kp).amin(dim=1)
+        for i in range(0, n, rows)
+    ]
+    return torch.cat(out) if out else x.new_empty((0, kp))
+
+
+def slab_cull(x, slab, blk, tile: int):
+    """[n/tile, K] tile-min conservative AABB entry bounds (kernel 1)."""
+    if x.device.type == "cpu":
+        return _slab_cull_ref(x, slab, blk, tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"slab_cull runs on CUDA or CPU tensors, not {x.device}")
+    device = x.device
+    n = x.shape[0]
+    kp = blk.shape[1]
+    if n % tile or 8 * tile * 4 > _MAX_SMEM:
+        raise ValueError(f"slab_cull: bad tile {tile} for {n} rays")
+    check_tensor(x, "x", torch.float32, (n, 16), device)
+    check_tensor(slab, "slab", torch.float32, (8, kp), device)
+    check_tensor(blk, "blk", torch.float32, (8, kp), device)
+    out = torch.empty((n // tile, kp), dtype=torch.float32, device=device)
+    if n:
+        SLAB_CULL.launch(device, x.data_ptr(), slab.data_ptr(), blk.data_ptr(),
+                         out.data_ptr(), n, kp, tile)
+    return out
+
+
+def vmem_tile_cap(kp: int, budget_bytes: int = 1 << 21) -> int:
+    """Largest pow-2 ray tile whose [tile, kp] f32 entry table stays under
+    ``budget_bytes`` — the JAX package's tile rule, kept so that tiles,
+    and the order of ties across blocks, match it."""
+    t = 8
+    while t * 2 * kp * 4 <= budget_bytes:
+        t *= 2
+    return t
+
+
+def _full_select(tile_entry):
+    """Entry-ordered FULL per-tile block lists.
+
+    -> sel [G, K] i32 (entry order; the infeasible tail repeats the last
+    feasible id), lb [G, K] f32 (BIG on the tail), nsel [G, 1] i32
+    feasible count. The sort is stable, as ``jnp.argsort``."""
+    g, kp = tile_entry.shape
+    sorted_e, order = torch.sort(tile_entry, dim=1, stable=True)
+    count = (sorted_e < BIG).sum(dim=1).to(torch.int32)
+    sel = order.to(torch.int32)
+    jj = torch.arange(kp, dtype=torch.int32, device=tile_entry.device)[None, :]
+    last = torch.clamp(count - 1, 0, kp - 1)[:, None].long()
+    last_sel = torch.gather(sel, 1, last)
+    live = jj < count[:, None]
+    sel = torch.where(live, sel, last_sel)
+    lb = torch.where(live, sorted_e, BIG)
+    return sel, lb, count.reshape(g, 1)
+
+
+def _walk_ref(sel, lb, r, t0, act, w, tile: int, block: int):
+    """Plain walk: every listed round, no early exit — idempotent under
+    the running min, so it matches the early-exiting kernel."""
+    return cl._cluster_ref(sel, lb, r, t0, act, w, tile, block, sel.shape[1])
+
+
+def walk(sel, lb, nsel, r, t0, act, w, tile: int, block: int):
+    """Per-tile entry-ordered block walk (kernel 2) -> (bt [n], btri [n]):
+    each ray's nearest t below its t0 and that triangle's id (-1 = none)."""
+    if r.device.type == "cpu":
+        return _walk_ref(sel, lb, r, t0, act, w, tile, block)
+    if r.device.type != "cuda":
+        raise ValueError(f"walk runs on CUDA or CPU tensors, not {r.device}")
+    device = r.device
+    n = r.shape[0]
+    g = n // tile
+    kp = sel.shape[1]
+    rpt = WALK.call_int("walk_rays_per_thread")
+    if n % tile or tile % rpt or tile // rpt > 1024 or 40 * block * 4 > _MAX_SMEM:
+        raise ValueError(f"walk: bad tile {tile} / block {block} for {n} rays")
+    check_tensor(sel, "sel", torch.int32, (g, kp), device)
+    check_tensor(lb, "lb", torch.float32, (g, kp), device)
+    check_tensor(nsel, "nsel", torch.int32, (g, 1), device)
+    check_tensor(r, "r", torch.float32, (n, 16), device)
+    check_tensor(t0, "t0", torch.float32, (n,), device)
+    check_tensor(act, "act", torch.float32, (n,), device)
+    check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
+    bt = torch.empty((n,), dtype=torch.float32, device=device)
+    btri = torch.empty((n,), dtype=torch.int32, device=device)
+    if n:
+        WALK.launch(device, sel.data_ptr(), lb.data_ptr(), nsel.data_ptr(),
+                    r.data_ptr(), t0.data_ptr(), act.data_ptr(), w.data_ptr(),
+                    bt.data_ptr(), btri.data_ptr(), n, kp, tile, block)
+    return bt, btri
+
+
+# ---------------------------------------------------------------------------
+# coherence sort (JAX ops/traverse._coherence_key, ops/binned._bin_rank and
+# _apply_perm)
+# ---------------------------------------------------------------------------
+
+
+def _coherence_key(origin, direction, active, root_min, root_max):
+    """Sort key, most significant first: [inactive or missing the root
+    box] [direction octant] [4-bit-per-axis origin morton]."""
+    hit_root, _ = intersect_aabb(origin, direction, root_min, root_max)
+    octant = (
+        (direction[:, 0] >= 0).to(torch.int32)
+        + 2 * (direction[:, 1] >= 0).to(torch.int32)
+        + 4 * (direction[:, 2] >= 0).to(torch.int32)
+    )
+    span = torch.clamp_min(root_max - root_min, 1e-6)
+    q = torch.clamp(((origin - root_min) / span) * 15.0, 0.0, 15.0).to(torch.int32)
+    morton = torch.zeros_like(octant)
+    for b in range(4):
+        for a in range(3):
+            morton = morton | (((q[:, a] >> b) & 1) << (3 * b + a))
+    key = (octant << 12) | morton
+    return torch.where(active & hit_root, key, 1 << 20)
+
+
+def _bin_rank(bins):
+    """Stable sort rank: perm gathers rays into key order, rank = perm^-1."""
+    _, perm = torch.sort(bins, stable=True)
+    iota = torch.arange(bins.shape[0], device=bins.device)
+    rank = torch.empty_like(perm).scatter_(0, perm, iota)
+    return rank, perm
+
+
+def _apply_perm(a, perm):
+    """Gather rows of a [n, ...] by perm [n]."""
+    return a.index_select(0, perm)
+
+
+# ---------------------------------------------------------------------------
+# public entry
+# ---------------------------------------------------------------------------
+
+
+def intersect_mesh_walk(origin, direction, cm: "cl.ClusterMesh", config,
+                        t_init=None, active=None) -> TriHit:
+    """Nearest hit over the cluster mesh; exact (brute-equal) results.
+
+    ``t_init`` bounds the cull and the per-ray running min (analytic geoms
+    first); ``active`` lanes cull nothing and sort to the back.
+    """
+    if config.binned_shards != 1:
+        raise NotImplementedError(
+            "binned_shards != 1 (a sort local to each chip's shard) is not "
+            "ported: the port runs on one device")
+    origin = vm.as_rows(origin)
+    direction = vm.as_rows(direction)
+    n = origin.shape[0]
+    device = origin.device
+    tile = min(config.cluster_tile, vmem_tile_cap(cm.slab.shape[1]))
+
+    origin = origin.to(torch.float32) - cm.center_shift
+    direction = direction.to(torch.float32)
+    t0 = (torch.full((n,), BIG, dtype=torch.float32, device=device)
+          if t_init is None else t_init)
+    act = (torch.ones((n,), dtype=torch.bool, device=device)
+           if active is None else active)
+
+    pad = (-n) % tile
+    if pad:
+        z3 = torch.zeros((pad, 3), dtype=torch.float32, device=device)
+        origin = torch.cat([origin, z3])
+        direction = torch.cat([direction, z3])
+        t0 = torch.cat([t0, torch.zeros((pad,), dtype=torch.float32, device=device)])
+        act = torch.cat([act, torch.zeros((pad,), dtype=torch.bool, device=device)])
+    npad = origin.shape[0]
+
+    key = _coherence_key(origin, direction, act, cm.root_min, cm.root_max)
+    rank, perm = _bin_rank(key)
+
+    direction = torch.where(act[:, None], direction, 0.0)
+    x = _ray16(origin, direction, t0, act.to(torch.float32))
+    x = _apply_perm(x, perm)
+    t0s = x[:, 6].contiguous()
+    acts = x[:, 7].contiguous()
+
+    tile_entry = slab_cull(x, cm.slab, cm.blk, tile)
+    sel, lb, nsel = _full_select(tile_entry)
+
+    r = mxu_bf.ray_features(x[:, 0:3], x[:, 3:6])
+    r = torch.cat([r, torch.zeros((npad, 6), dtype=torch.float32, device=device)], dim=1)
+
+    bt, btri = walk(sel, lb, nsel, r, t0s, acts, cm.w, tile, cm.block)
+
+    bt = _apply_perm(bt, rank)[:n]
+    btri = _apply_perm(btri, rank)[:n]
+    bt = torch.where(btri >= 0, bt, BIG)
+    zero = torch.zeros((n,), dtype=torch.float32, device=device)
+    return TriHit(t=bt, tri=btri, u=zero, v=zero)

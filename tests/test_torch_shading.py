@@ -1,0 +1,178 @@
+"""The per-lane shading chain equals the JAX package's on camera rays.
+
+Inputs come from one scene and numpy seeds and go through both packages.
+The JAX functions run eagerly, op by op, as PyTorch does, so both apply
+the same float32 operations in the same order. Integers and booleans are
+compared exactly. Floats may differ where the two libraries round
+differently: PyTorch's vectorized float32 sqrt on the CPU is not always
+correctly rounded (1 ulp off for ~0.7% of inputs) and sin/cos/arccos are
+other implementations; such 1-ulp differences then scale with the
+magnitudes downstream (a point is origin + t * direction). So a float
+passes within ``MAXULP`` units in the last place of max(|x|, 1), i.e.
+within 1.9e-6 in a scene whose coordinates run to ~15 (measured: at most
+15 such ulp). Depth of field gets ``DOF_MAXULP``: it rotates each ray by
+sin/cos of a random angle and pivots it about a point 8 units away,
+which multiplies the sin/cos differences (measured: at most 120).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kdtreepathtraceroptimization_tpu.config import RenderConfig as JCfg
+from kdtreepathtraceroptimization_tpu.ops import bsdf as jbsdf
+from kdtreepathtraceroptimization_tpu.ops import camera as jcamera
+from kdtreepathtraceroptimization_tpu.ops import intersect as jisect
+from kdtreepathtraceroptimization_tpu.ops import rng as jrng
+from kdtreepathtraceroptimization_tpu.ops import shade as jshade
+from kdtreepathtraceroptimization_tpu.ops import vecmath as jvm
+from kdtreepathtraceroptimization_tpu.scene import parser as jparser
+from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig as TCfg
+from kdtreepathtraceroptimization_tpu_torch.ops import bsdf as tbsdf
+from kdtreepathtraceroptimization_tpu_torch.ops import camera as tcamera
+from kdtreepathtraceroptimization_tpu_torch.ops import intersect as tisect
+from kdtreepathtraceroptimization_tpu_torch.ops import rng as trng
+from kdtreepathtraceroptimization_tpu_torch.ops import shade as tshade
+from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as tvm
+from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
+
+CORNELL = os.path.join(os.path.dirname(__file__), "..", "scenes", "cornell.txt")
+MAXULP = 16
+DOF_MAXULP = 256
+RES = 48
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _v3t(v):
+    return tvm.V3(_t(v.x), _t(v.y), _t(v.z))
+
+
+def _same(a, b, what, maxulp=MAXULP):
+    """Exact for integers/bools, within ``maxulp`` for floats."""
+    a = np.asarray(a)
+    b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    assert a.shape == b.shape, what
+    if a.dtype.kind == "f":
+        scale = np.spacing(np.maximum(np.abs(a), np.float32(1)))
+        err = np.abs(a.astype(np.float64) - b) / scale
+        assert err.max() <= maxulp, f"{what}: {err.max()} ulp"
+    else:
+        np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+def _same_v3(a, b, what, maxulp=MAXULP):
+    for c in "xyz":
+        _same(getattr(a, c), getattr(b, c), f"{what}.{c}", maxulp)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    j = jparser.with_resolution(jparser.load_scene(CORNELL), RES, RES)
+    t = tparser.with_resolution(tparser.load_scene(CORNELL, device="cpu"), RES, RES)
+    return j, t
+
+
+@pytest.mark.parametrize("aa, dof", [(False, 0.0), (True, 0.0), (True, 0.3)])
+def test_generate_rays_match(scenes, aa, dof):
+    js, ts = scenes
+    kj = jrng.bounce_key(jax.random.PRNGKey(3), 2, 0)
+    kt = trng.bounce_key(trng.prng_key(3), 2, 0)
+    rj = jcamera.generate_rays(js.camera, JCfg(antialias=aa, dof_angle=dof), kj, 8)
+    rt = tcamera.generate_rays(ts.camera, TCfg(antialias=aa, dof_angle=dof), kt, 8,
+                               "cpu")
+    maxulp = DOF_MAXULP if dof else MAXULP
+    _same_v3(rj.origin, rt.origin, "origin", maxulp)
+    _same_v3(rj.direction, rt.direction, "direction", maxulp)
+    for f in ("is_inside", "sdepth", "pixel_index", "remaining_bounces"):
+        _same(getattr(rj, f), getattr(rt, f), f)
+
+
+def _camera_rays(js, ts):
+    kj = jrng.bounce_key(jax.random.PRNGKey(0), 1, 0)
+    kt = trng.bounce_key(trng.prng_key(0), 1, 0)
+    cfg = dict(antialias=True)
+    return (jcamera.generate_rays(js.camera, JCfg(**cfg), kj, 8),
+            tcamera.generate_rays(ts.camera, TCfg(**cfg), kt, 8, "cpu"))
+
+
+def _bounce_rays(n, seed):
+    """Rays from inside the box in uniform random directions."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-4.5, 0.5, -4.5], [4.5, 9.5, 4.5], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def test_intersect_geoms_match(scenes):
+    js, ts = scenes
+    rj, rt = _camera_rays(js, ts)
+    o, d = _bounce_rays(4096, seed=1)
+    for (oj, dj), (ot, dt) in (
+        ((rj.origin, rj.direction), (rt.origin, rt.direction)),
+        ((jnp.asarray(o), jnp.asarray(d)), (_t(o), _t(d))),
+    ):
+        hj = jisect.intersect_geoms(oj, dj, js.geoms)
+        ht = tisect.intersect_geoms(ot, dt, ts.geoms)
+        _same(hj.t, ht.t, "t")
+        _same_v3(hj.point, ht.point, "point")
+        _same_v3(hj.normal, ht.normal, "normal")
+        _same(hj.material_id, ht.material_id, "material_id")
+        _same(hj.outside, ht.outside, "outside")
+
+
+@pytest.mark.parametrize("softness, inside_frac", [(0.0, 0.0), (0.5, 0.3)])
+def test_scatter_and_shade_match(scenes, softness, inside_frac):
+    """Every material class, fed the same hits and uniforms."""
+    js, ts = scenes
+    n = 4096
+    o, d = _bounce_rays(n, seed=2)
+    hj = jisect.intersect_geoms(jnp.asarray(o), jnp.asarray(d), js.geoms)
+    rng = np.random.default_rng(5)
+    # all scene materials, not only the ones the box's walls use
+    mid = rng.integers(-1, js.materials.count, n).astype(np.int32)
+    inside = rng.uniform(size=n) < inside_frac
+    sdepth = rng.uniform(0, 1.5, n).astype(np.float32)
+    color = rng.uniform(0, 1, (3, n)).astype(np.float32)
+    bounces = rng.integers(0, 4, n).astype(np.int32)
+    hit_t = np.where(mid >= 0, np.asarray(hj.t), 1e30).astype(np.float32)
+    kj = jrng.bounce_key(jax.random.PRNGKey(1), 1, 2)
+    kt = trng.bounce_key(trng.prng_key(1), 1, 2)
+    uj = jrng.uniform_cols(kj, n, 8)
+    ut = trng.uniform_cols(kt, n, 8, device="cpu")
+
+    mj = jbsdf.gather_materials(js.materials, jnp.asarray(mid))
+    mt = tbsdf.gather_materials(ts.materials, _t(mid))
+    for f in mj._fields:
+        a, b = getattr(mj, f), getattr(mt, f)
+        if isinstance(a, jvm.V3):
+            _same_v3(a, b, f)
+        else:
+            _same(a, b, f)
+
+    oj, dj = jvm.v3_from_rows(jnp.asarray(o)), jvm.v3_from_rows(jnp.asarray(d))
+    ot, dt = tvm.v3_from_rows(_t(o)), tvm.v3_from_rows(_t(d))
+    sj = jbsdf.scatter(oj, dj, jnp.asarray(inside), hj.point, hj.normal, mj,
+                       uj, softness)
+    st = tbsdf.scatter(ot, dt, _t(inside), _v3t(hj.point), _v3t(hj.normal), mt,
+                       ut, softness)
+    _same_v3(sj.origin, st.origin, "origin")
+    _same_v3(sj.direction, st.direction, "direction")
+    _same(sj.is_inside, st.is_inside, "is_inside")
+    _same(sj.sdepth, st.sdepth, "sdepth")
+
+    for sss in (False, True):
+        cj, bj = jshade.shade(jvm.V3(*map(jnp.asarray, color)),
+                              jnp.asarray(bounces), jnp.asarray(hit_t), mj,
+                              jnp.asarray(sdepth), sss)
+        ct, bt = tshade.shade(tvm.V3(*map(_t, color)), _t(bounces), _t(hit_t),
+                              mt, _t(sdepth), sss)
+        _same_v3(cj, ct, "color")
+        _same(bj, bt, "bounces")
