@@ -2,10 +2,11 @@
 
 Same field names and defaults as ``kdtreepathtraceroptimization_tpu.config``
 so one config describes a render in either package. This port implements
-the exact cluster-walk intersector (``cluster_walk=True,
-cluster_pairs=False``) and the analytic-only path; the integrator raises
-``NotImplementedError`` for fields that select anything else (see
-``render/integrator.py``). The field comments name the reference
+the pair-list intersector (``cluster_pairs=True``, the default for a mesh
+with a cluster table), the exact cluster walk (``cluster_walk=True,
+cluster_pairs=False``), both brute forces (``enable_kd=False``) and the
+analytic-only path; the integrator raises ``NotImplementedError`` for
+fields that select anything else (see ``render/integrator.py``). The field comments name the reference
 renderer's toggles (src/main.cpp:35-60).
 """
 
@@ -69,8 +70,8 @@ class RenderConfig:
     pair_bdiag: bool = False
     pair_bdiag_tile: int = 1024
     pair_narrow_div: int = 8
-    # Shard-local coherence sort across chips; the port runs on one device
-    # and raises for any value but 1 (``ops/walk.intersect_mesh_walk``).
+    # Shard-local sorts across chips; the port runs on one device and
+    # raises for any value but 1 (``ops/walk.py``, ``ops/pairs.py``).
     binned_shards: int = 1
     scan_bounces: bool = True
 

@@ -193,6 +193,30 @@ def intersect_geoms(origin, direction, geoms) -> Hit:
     return best
 
 
+def moller_trumbore(origin, direction, v0, v1, v2, cull_backface: bool = True):
+    """Moller-Trumbore over a [N rays] x [T triangles] broadcast, as the
+    vendored glm::intersectRayTriangle (reference: external/include/glm/
+    gtx/intersect.inl): back faces culled (det < eps misses), t >= 0
+    accepted, u toward v1 and v toward v2.
+
+    origin/direction: [N, 3]; v0/v1/v2: [T, 3].
+    Returns (t [N, T] with BIG = miss, u [N, T], v [N, T]).
+    """
+    e1 = v1 - v0
+    e2 = v2 - v0
+    p = vm.cross(direction[:, None, :], e2[None, :, :])
+    a = torch.sum(e1[None, :, :] * p, dim=-1)
+    valid = a > 1.19e-7 if cull_backface else torch.abs(a) > 1.19e-7
+    f = 1.0 / torch.where(valid, a, 1.0)
+    s = origin[:, None, :] - v0[None, :, :]
+    u = f * torch.sum(s * p, dim=-1)
+    q = vm.cross(s, e1[None, :, :])
+    v = f * torch.sum(direction[:, None, :] * q, dim=-1)
+    t = f * torch.sum(e2[None, :, :] * q, dim=-1)
+    ok = valid & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (t >= 0)
+    return torch.where(ok, t, BIG), u, v
+
+
 def intersect_aabb(origin, direction, bb_min, bb_max):
     """Branchless slab test, broadcast over rays x boxes (intersectBbox,
     reference: interactions.h:136-165), with axis-parallel rays handled

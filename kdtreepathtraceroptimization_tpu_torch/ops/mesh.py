@@ -1,6 +1,8 @@
-"""Triangle hits: re-evaluating the winner and expanding it to a full Hit.
+"""Triangle hits: brute force, re-evaluating the winner, the full Hit.
 
-The JAX package's ``ops/mesh.py`` hit expansion in PyTorch. The
+The JAX package's ``ops/mesh.py`` in PyTorch: the brute-force
+intersector ``intersect_mesh_brute`` (plain PyTorch, no kernel) and the
+hit expansion. The
 intersectors only pick each ray's triangle; ``tri_hit_to_hit`` gathers the
 winner's record (vertices, normals, material) into per-field channel
 arrays with kernel 3 (``csrc/gather_cols.cu``), recomputes t/u/v with one
@@ -16,7 +18,13 @@ from typing import NamedTuple
 import torch
 
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
-from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG, Hit, miss_hit
+from kdtreepathtraceroptimization_tpu_torch.ops.intersect import (
+    BIG,
+    Hit,
+    intersect_aabb,
+    miss_hit,
+    moller_trumbore,
+)
 from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import CudaKernel, check_tensor
 
 GATHER_COLS = CudaKernel(
@@ -32,6 +40,58 @@ class TriHit(NamedTuple):
     tri: torch.Tensor  # [N] int32 triangle index (-1 = miss)
     u: torch.Tensor  # [N]
     v: torch.Tensor  # [N]
+
+
+# Elements of the [rays, triangles] tests the brute force makes at once.
+_BRUTE_CHUNK_ELEMS = 1 << 22
+
+
+def intersect_mesh_brute(origin, direction, mesh, chunk: int = 512,
+                         use_bbox: bool = True, t_max=None) -> TriHit:
+    """Nearest triangle hit by testing every triangle, ``chunk`` triangles
+    at a time with the running best carried across chunks (strict ``<``,
+    the first minimum within a chunk); rays go a bounded number at a time.
+
+    ``use_bbox`` is the reference's per-shape AABB cull (pathtrace.cu:
+    497-507, 0.01 pad): rays that miss every shape's padded box test no
+    triangle.
+    """
+    origin = vm.as_rows(origin)
+    direction = vm.as_rows(direction)
+    n = origin.shape[0]
+    device = origin.device
+    pad = (-mesh.v0.shape[0]) % chunk
+    z = torch.zeros((pad, 3), dtype=torch.float32, device=device)
+    v0, v1, v2 = (torch.cat([v, z]) for v in (mesh.v0, mesh.v1, mesh.v2))
+    if use_bbox:
+        hit_any, _ = intersect_aabb(origin[:, None, :], direction[:, None, :],
+                                    (mesh.shape_bbox_min - 0.01)[None],
+                                    (mesh.shape_bbox_max + 0.01)[None])
+        ray_mask = hit_any.any(dim=1)
+    else:
+        ray_mask = torch.ones((n,), dtype=torch.bool, device=device)
+
+    best_t = (torch.full((n,), BIG, dtype=torch.float32, device=device)
+              if t_max is None else t_max.clone())
+    best = [best_t, torch.full((n,), -1, dtype=torch.int32, device=device),
+            torch.zeros((n,), dtype=torch.float32, device=device),
+            torch.zeros((n,), dtype=torch.float32, device=device)]
+    rows = max(1, _BRUTE_CHUNK_ELEMS // chunk)
+    for r0 in range(0, n, rows):
+        o, d, m = origin[r0:r0 + rows], direction[r0:r0 + rows], ray_mask[r0:r0 + rows]
+        bt, bi, bu, bv = (b[r0:r0 + rows] for b in best)
+        for start in range(0, v0.shape[0], chunk):
+            sl = slice(start, start + chunk)
+            t, u, v = moller_trumbore(o, d, v0[sl], v1[sl], v2[sl])
+            t = torch.where(m[:, None], t, BIG)
+            loc = torch.argmin(t, dim=1)[:, None]
+            lt = torch.gather(t, 1, loc)[:, 0]
+            better = lt < bt
+            bu.copy_(torch.where(better, torch.gather(u, 1, loc)[:, 0], bu))
+            bv.copy_(torch.where(better, torch.gather(v, 1, loc)[:, 0], bv))
+            bi.copy_(torch.where(better, (start + loc[:, 0]).to(torch.int32), bi))
+            bt.copy_(torch.where(better, lt, bt))
+    return TriHit(*best)
 
 
 def refine_tri_hit(origin, direction, tri_idx, mesh):

@@ -32,7 +32,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
 from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG, intersect_aabb
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit
-from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import CudaKernel, check_tensor
+from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, CudaKernel, check_tensor
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,8 +41,6 @@ SLAB_CULL = CudaKernel("slab_cull", "slab_cull", [_P, _P, _P, _P, _I, _I, _I])
 WALK = CudaKernel("walk", "walk",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
 
-# Dynamic shared memory one thread block may use on sm_90 (bytes).
-_MAX_SMEM = 232448
 # Elements of [rays, blocks] entries the plain slab cull makes at once.
 _REF_CHUNK_ELEMS = 1 << 26
 
@@ -115,7 +113,7 @@ def slab_cull(x, slab, blk, tile: int):
     device = x.device
     n = x.shape[0]
     kp = blk.shape[1]
-    if n % tile or 8 * tile * 4 > _MAX_SMEM:
+    if n % tile or 8 * tile * 4 > MAX_SMEM:
         raise ValueError(f"slab_cull: bad tile {tile} for {n} rays")
     check_tensor(x, "x", torch.float32, (n, 16), device)
     check_tensor(slab, "slab", torch.float32, (8, kp), device)
@@ -174,7 +172,7 @@ def walk(sel, lb, nsel, r, t0, act, w, tile: int, block: int):
     g = n // tile
     kp = sel.shape[1]
     rpt = WALK.call_int("walk_rays_per_thread")
-    if n % tile or tile % rpt or tile // rpt > 1024 or 40 * block * 4 > _MAX_SMEM:
+    if n % tile or tile % rpt or tile // rpt > 1024 or 40 * block * 4 > MAX_SMEM:
         raise ValueError(f"walk: bad tile {tile} / block {block} for {n} rays")
     check_tensor(sel, "sel", torch.int32, (g, kp), device)
     check_tensor(lb, "lb", torch.float32, (g, kp), device)

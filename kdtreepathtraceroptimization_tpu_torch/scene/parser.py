@@ -22,6 +22,7 @@ import numpy as np
 
 from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mesh
+from kdtreepathtraceroptimization_tpu_torch.ops.pairs import MAX_CLUSTER_BLOCKS
 from kdtreepathtraceroptimization_tpu_torch.ops.vecmath import build_transformation_matrix
 from kdtreepathtraceroptimization_tpu_torch.scene.obj_loader import load_obj
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import (
@@ -35,10 +36,6 @@ from kdtreepathtraceroptimization_tpu_torch.scene.structs import (
     concat_materials,
 )
 from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device
-
-# Cap on cluster blocks: the pair intersector's packed keys hold 13-bit
-# block ids (the JAX package's ops/pairs.py MAX_CLUSTER_BLOCKS).
-MAX_CLUSTER_BLOCKS = 1 << 13
 
 
 def _tokenize(line: str) -> List[str]:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface (pointers, sizes, the
 stream) and compiles with ``nvcc`` alone into its own shared library under
 ``build/kernels/`` at the repository root, loaded with ``ctypes``. The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library never loads. Nothing is built when
+library's file name carries a hash of its source, every ``csrc/*.cuh``
+header and the flags, so an edited source or header is rebuilt and a
+stale library never loads. Nothing is built when
 a module is imported: the first launch builds every source at once, one
 ``nvcc`` per source, started together.
 """
@@ -24,11 +25,14 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("slab_cull", "walk", "gather_cols")
+SOURCES = ("slab_cull", "walk", "gather_cols", "pair_extract", "pair_runs", "mxu_bf")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Dynamic shared memory one thread block may use on sm_90 (bytes): the
+# wrappers refuse a tile or block whose staging needs more.
+MAX_SMEM = 232448
 
 
 def _nvcc() -> str:
@@ -40,9 +44,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -6,10 +6,15 @@ the H100 run ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q``
 ``chip_smoke.py`` checks the kernels at the main path's shapes; these
 tests cover the other shapes the wrappers accept: tiles whose staging
 needs more than 48 KB of shared memory, 64- to 1024-triangle blocks,
-tiles with empty feasible lists or only dead rays, and bad arguments.
-Tolerances: slab cull and gather-to-columns bit for bit; walk triangle
-ids exactly and t within 1e-5 relative (its 10-term sums may round
-differently from the batched product).
+tiles with empty feasible lists or only dead rays, 1 to 16 pair slots,
+block tables of 1024 to 8192 blocks, pair tiles that are all sentinel or
+split a run, triangle counts that are not a multiple of the brute
+force's block, and bad arguments. Tolerances: slab cull, extraction and
+gather-to-columns bit for bit; walk and brute-force triangle ids exactly
+and t within 1e-5 relative (their 10-term sums may round differently
+from the batched product); the pair test's loc on >= 99.9% of real
+pairs and t within 2^-12 relative (the same rounding, seen through the
+2^-13 truncation of the packed key).
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ import torch
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf
+from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
 from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mesh
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA
@@ -134,3 +140,134 @@ def test_walk_intersector_on_cuda_matches_cpu(cuda):
             for dev in (cuda, torch.device("cpu"))]
     assert torch.equal(hits[0].tri.cpu(), hits[1].tri)
     torch.testing.assert_close(hits[0].t.cpu(), hits[1].t, rtol=1e-5, atol=0)
+
+
+def _pair_inputs(cm, n, seed):
+    """The _ray16 record of rays around the mesh aimed near its centre,
+    with dead rays (the last 256 all dead) and t0 bounds."""
+    x, *_ = _walk_inputs(cm, n, 256, seed=seed)
+    return x
+
+
+@pytest.mark.parametrize("subdiv, block, F", [
+    (4, 64, 1), (4, 64, 3), (5, 8, 12), (5, 8, 16), (6, 10, 3),
+])
+def test_extract_kernel_bit_equal(cuda, subdiv, block, F):
+    """kp from 128 to 8192 (icosphere-6 in 10-triangle leaves: the cap)."""
+    cm = build_cluster_mesh(_mesh(subdiv), block=block, device=cuda)
+    x = _pair_inputs(cm, 8192, seed=F)
+    before = tpairs.EXTRACT.launches
+    got = tpairs.extract(x, cm.slab, cm.blk, F)
+    want = tpairs._extract_ref(x, cm.slab, cm.blk, F)
+    assert tpairs.EXTRACT.launches == before + 1
+    assert int((want[2] > F).sum()) > 0 or F == 16
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if subdiv == 6:
+        assert cm.n_blocks == tpairs.MAX_CLUSTER_BLOCKS
+
+
+def _check_packed(got, want, blk_s, kreal):
+    real = blk_s < kreal
+    tg, lg = tpairs._unpack_tl(got)
+    tw, lw = tpairs._unpack_tl(want)
+    assert (got[~real] == tpairs._PBIG).all()
+    assert int((want[real] < tpairs._PBIG).sum()) > 100
+    assert (lg == lw)[real].float().mean().item() >= 0.999
+    both = real & (tg < 1e30) & (tw < 1e30)
+    assert (((tg - tw).abs() / tw.abs().clamp_min(1e-30))[both] <= 2.0 ** -12).all()
+    assert ((tg < 1e30) == (tw < 1e30))[real].float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("block, ptile", [(64, 256), (256, 256), (1024, 128)])
+def test_pair_runs_kernel_matches_plain(cuda, block, ptile):
+    """Block-sorted pairs from a real extraction: runs that split tiles,
+    and a tail of whole tiles that are all sentinel."""
+    cm = build_cluster_mesh(_mesh(5), block=block, device=cuda)
+    x = _pair_inputs(cm, 4096, seed=block)
+    ids, _, _, feat = tpairs.extract(x, cm.slab, cm.blk, 3)
+    flat = torch.cat([ids.reshape(-1), torch.full((4 * ptile,), cm.n_blocks,
+                                                  dtype=torch.int32, device=cuda)])
+    blk_s, src = torch.sort(flat, stable=True)
+    featp = feat[torch.clamp_max(src // 3, 4095)]
+    before = tpairs.PAIR_RUNS.launches
+    got = tpairs.pair_runs(blk_s, featp, cm.w, block, ptile, cm.n_real_blocks)
+    want = tpairs._pair_runs_ref(blk_s, featp, cm.w, block, cm.n_real_blocks)
+    assert tpairs.PAIR_RUNS.launches == before + 1
+    tiles = blk_s.reshape(-1, ptile)
+    # a run that goes on from one tile into the next
+    assert bool(((tiles[1:, 0] == tiles[:-1, -1]) & (tiles[1:, 0] < cm.n_real_blocks)).any())
+    assert bool((tiles[:, 0] >= cm.n_real_blocks).any())
+    _check_packed(got, want, blk_s, cm.n_real_blocks)
+
+
+@pytest.mark.parametrize("n_tris_subdiv, tri_block, ray_tile", [(3, 512, 1024), (4, 64, 256),
+                                                                 (4, 1024, 512)])
+def test_brute_force_kernel_matches_plain(cuda, n_tris_subdiv, tri_block, ray_tile):
+    """1,280 or 5,120 triangles (not multiples of 512 or 1024), 3,000 rays
+    (not a multiple of the ray tile), some with a t bound."""
+    mesh = build_cluster_mesh(_mesh(n_tris_subdiv), block=64, device=cuda).tris
+    rng = np.random.default_rng(tri_block)
+    o = torch.tensor(rng.normal(size=(3000, 3)).astype(np.float32) * 4.0, device=cuda)
+    d = torch.tensor(np.array([0.3, -0.2, 0.5], np.float32)
+                     + rng.normal(size=(3000, 3)).astype(np.float32), device=cuda) - o
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.where(torch.arange(3000, device=cuda) % 3 == 0, 4.0, 1e30)
+    before = mxu_bf.BF.launches
+    got = mxu_bf.intersect_brute_mxu(o, d, mesh.v0, mesh.v1, mesh.v2, t_max=t_max,
+                                     ray_tile=ray_tile, tri_block=tri_block)
+    want = mxu_bf.intersect_brute_mxu_ref(o, d, mesh.v0, mesh.v1, mesh.v2, t_max=t_max,
+                                          block=tri_block)
+    assert mxu_bf.BF.launches == before + 1
+    assert int((want.tri >= 0).sum()) > 300
+    assert torch.equal(got.tri, want.tri)
+    torch.testing.assert_close(got.t, want.t, rtol=1e-5, atol=0)
+
+
+def test_new_wrappers_check_their_arguments(cuda):
+    cm = build_cluster_mesh(_mesh(3), block=64, device=cuda)
+    x = _pair_inputs(cm, 1024, seed=0)
+    for F in (0, 17):
+        with pytest.raises(ValueError):
+            tpairs.extract(x, cm.slab, cm.blk, F)
+    with pytest.raises(ValueError):
+        tpairs.extract(x.double(), cm.slab, cm.blk, 3)
+    with pytest.raises(ValueError):  # past the 13-bit block-id cap
+        big = torch.zeros((8, 8320), device=cuda)
+        tpairs.extract(x, big, big, 3)
+    ids, _, _, feat = tpairs.extract(x, cm.slab, cm.blk, 1)
+    blk_s = ids.reshape(-1)
+    with pytest.raises(ValueError):  # 1024 pairs in tiles of 384
+        tpairs.pair_runs(blk_s, feat, cm.w, 64, 384, cm.n_real_blocks)
+    with pytest.raises(ValueError):
+        tpairs.pair_runs(blk_s.long(), feat, cm.w, 64, 256, cm.n_real_blocks)
+    v = cm.tris.v0
+    with pytest.raises(ValueError):  # 82-ray tiles: not 4 rays per thread
+        mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, ray_tile=82)
+    with pytest.raises(ValueError):  # 2048-triangle blocks need 320 KB
+        mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, tri_block=2048)
+
+
+def test_pair_intersector_on_cuda_matches_cpu(cuda):
+    """The whole intersector with its three passes, kernels against plain
+    versions: rays aimed at the silhouette of a 5,120-triangle sphere in
+    8-triangle blocks (kp = 1024) leave rays for the exhaustive walk."""
+    mesh = _mesh(4)
+    rng = np.random.default_rng(1)
+    c = np.array([0.3, -0.2, 0.5])
+    u = rng.normal(size=(4096, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    w = rng.normal(size=(4096, 3))
+    w -= (w * u).sum(1, keepdims=True) * u
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    o = (c + 10.0 * u).astype(np.float32)
+    d = c + w * rng.uniform(1.9, 2.05, (4096, 1)) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    cfg = RenderConfig(cluster=True, cluster_tile=256, pair_slots=1)
+    hits = [tpairs.intersect_mesh_pairs(torch.tensor(o, device=dev), torch.tensor(d, device=dev),
+                                        build_cluster_mesh(mesh, block=8, device=dev), cfg,
+                                        collect_stats=True)
+            for dev in (cuda, torch.device("cpu"))]
+    assert hits[0][1]["pass3_rays"] > 0
+    assert torch.equal(hits[0][0].tri.cpu(), hits[1][0].tri)
+    torch.testing.assert_close(hits[0][0].t.cpu(), hits[1][0].t, rtol=1e-5, atol=0)

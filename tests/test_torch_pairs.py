@@ -1,0 +1,329 @@
+"""The pair-list intersector and its kernels' plain versions against the
+JAX package.
+
+Inputs are the JAX cluster tests' meshes and ray sets (numpy seeds), plus
+grazing rays that cross many blocks without a hit, which is what leaves
+rays for the third pass. Tolerances: the extraction is bit for bit
+(against the JAX mirror run eagerly, as the port's arithmetic is unfused
+like the TPU's); the pair test's packed (t | loc) keys and every
+intersector's triangle ids exactly, with t within 1e-6 relative (a
+16-term float32 product summed in another order); brute force within the
+JAX pair tests' own 2e-4.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kdtreepathtraceroptimization_tpu.config import RenderConfig as JCfg
+from kdtreepathtraceroptimization_tpu.ops import camera as jcam
+from kdtreepathtraceroptimization_tpu.ops import intersect as jisect
+from kdtreepathtraceroptimization_tpu.ops import pairs as jpairs
+from kdtreepathtraceroptimization_tpu.ops import walk as jwalk
+from kdtreepathtraceroptimization_tpu.ops.cluster import build_cluster_mesh as jbuild
+from kdtreepathtraceroptimization_tpu.ops.mesh import intersect_mesh_brute
+from kdtreepathtraceroptimization_tpu.ops.rng import bounce_key
+from kdtreepathtraceroptimization_tpu.render.integrator import render as jrender
+from kdtreepathtraceroptimization_tpu.scene import parser as jparser
+from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig as TCfg
+from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
+from kdtreepathtraceroptimization_tpu_torch.ops import intersect as tisect
+from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
+from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mesh as tbuild
+from kdtreepathtraceroptimization_tpu_torch.render.integrator import mesh_route, render
+from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
+from tests.test_cluster import _mesh, _rays
+from tests.test_torch_render import CORNELL, GOLDENS, _mesh_obj
+from tests.test_torch_walk import _fma_entries
+
+T_RTOL = 1e-6
+PAIRS = dict(cluster=True, cluster_pairs=True)
+# The mesh_pairs_48 pixels whose paths branch in the golden itself (jit).
+JIT_BRANCHED_PIXELS = (490, 518)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _tables(subdiv, block=64):
+    mesh = _mesh(subdiv)
+    return mesh, jbuild(mesh, block=block), tbuild(mesh, block=block, device="cpu")
+
+
+def _x(cm, o, d):
+    """The JAX _ray16 record of a ray set with dead rays (every 7th) and
+    t0 bounds from 0.5 to 30."""
+    n = o.shape[0]
+    act = np.arange(n) % 7 != 0
+    t0 = np.linspace(0.5, 30.0, n).astype(np.float32)
+    return jwalk._ray16(jnp.asarray(o) - cm.center_shift, d * act[:, None],
+                        jnp.asarray(t0), jnp.asarray(act, jnp.float32))
+
+
+def _grazing_rays(n, seed):
+    """Rays from 10 units out aimed at the sphere's silhouette: they cross
+    many block boxes, and about a tenth miss."""
+    rng = np.random.default_rng(seed)
+    c = np.array([0.3, -0.2, 0.5])  # tests.test_cluster._mesh's centre
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    v = rng.normal(size=(n, 3))
+    v -= (v * u).sum(1, keepdims=True) * u
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    o = c + 10.0 * u
+    d = c + v * rng.uniform(1.9, 2.05, (n, 1)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.parametrize("F", [3, 12])
+def test_extract_matches_jax_eager_ref(F):
+    """ids, lb_over, count and the feature record, bit for bit, with
+    grazing rays on a 2048-block table."""
+    _, jcm, tcm = _tables(4, 4)
+    x = _x(jcm, *_grazing_rays(2048, seed=1))
+    want = jpairs._extract_ref(x, jcm.slab, jcm.blk, F)
+    got = tpairs.extract(_t(x), tcm.slab, tcm.blk, F)
+    assert (np.asarray(want[2]) > F).sum() > 10  # some rays overflow the window
+    for a, b in zip(want, got):
+        assert b.dtype == (torch.int32 if np.asarray(a).dtype == np.int32 else torch.float32)
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_extract_matches_pallas_interpret_through_fused_entries():
+    """The TPU kernel in interpret mode runs under jit, where XLA's CPU
+    compiler fuses ``lo * invd - oinv`` into an FMA. Its ids, counts and
+    lb_over equal the port's selection applied to the fused entries, bit
+    for bit; the port's own (unfused) selection agrees on >= 99% of the
+    ids here."""
+    _, jcm, tcm = _tables(3)
+    x = _x(jcm, *_rays(1024, seed=2))
+    F = 3
+    ids_i, lbov_i, cnt_i, feat_i = jpairs._extract_pallas(x, jcm.slab, jcm.blk, 256, F, True)
+    fused = torch.from_numpy(_fma_entries(x, jcm.slab, jcm.blk, 1))
+    kp = fused.shape[1]
+    key = (fused.view(torch.int32) & ~tpairs._IDX_MASK) | torch.arange(kp, dtype=torch.int32)
+    top = torch.sort(key, dim=1).values[:, :F + 1]
+    ids_f = torch.where(top[:, :F] < tpairs._BIG_KEY, top[:, :F] & tpairs._IDX_MASK, kp)
+    lbov_f = torch.where(top[:, F] < tpairs._BIG_KEY,
+                         (top[:, F] & ~tpairs._IDX_MASK).view(torch.float32), 1e30)
+    np.testing.assert_array_equal(np.asarray(ids_i), ids_f.numpy())
+    np.testing.assert_array_equal(np.asarray(lbov_i), lbov_f.numpy())
+    np.testing.assert_array_equal(np.asarray(cnt_i), (fused < 1e30).sum(1).numpy())
+    ids_t, _, cnt_t, feat_t = tpairs.extract(_t(x), tcm.slab, tcm.blk, F)
+    assert (np.asarray(ids_i) == ids_t.numpy()).mean() >= 0.99
+    np.testing.assert_allclose(np.asarray(feat_i), feat_t.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_pack_unpack_match_jax():
+    """(t | loc) keys bit for bit; t truncated downward by < 2^-13
+    relative (10 loc bits); misses decode as exactly BIG."""
+    rng = np.random.default_rng(0)
+    t = (rng.random(4096) * 100.0 + 1e-4).astype(np.float32)
+    t[:4] = 1e30
+    loc = rng.integers(0, 1024, 4096).astype(np.int32)
+    pj = np.asarray(jpairs._pack_tl(jnp.asarray(t), jnp.asarray(loc)))
+    pt = tpairs._pack_tl(_t(t), _t(loc))
+    np.testing.assert_array_equal(pj, pt.numpy())
+    tq, lq = tpairs._unpack_tl(pt)
+    for a, b in zip(jpairs._unpack_tl(jnp.asarray(pj)), (tq, lq)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    np.testing.assert_array_equal(lq.numpy(), loc)
+    tqn = tq.numpy()[4:]
+    assert (tqn <= t[4:]).all() and (tqn >= t[4:] * (1 - 2.0 ** -13)).all()
+    assert (pt[:4] >= tpairs._PBIG).all() and (tq[:4] == np.float32(1e30)).all()
+    assert tpairs._PBIG == jpairs._PBIG
+
+
+def test_pair_runs_plain_matches_pallas_interpret():
+    """Block-sorted pairs whose runs cross 256-pair tiles, a tile that
+    starts mid-run, and a sentinel tail (ids kreal..kp), against the TPU
+    kernel in interpret mode: packed keys bit for bit."""
+    _, jcm, tcm = _tables(3)
+    kreal, kp = jcm.n_real_blocks, jcm.n_blocks
+    rng = np.random.default_rng(4)
+    lens = [300, 1, 7, 200, 40, 2, 250]  # 800 real pairs over 7 blocks
+    blocks = np.sort(rng.choice(kreal, len(lens), replace=False))
+    # sentinel ids: padding blocks (kreal..kp-1), then empty slots (kp)
+    blk_s = np.concatenate([np.full(k, b) for k, b in zip(lens, blocks)]
+                           + [np.full(50, kreal), np.full(174, kp)]).astype(np.int32)
+    n = blk_s.shape[0]  # 1024 pairs, 4 tiles
+    # rays aimed at each pair's block centre: those that meet its front faces hit
+    o, _ = _rays(n, seed=6)
+    o = np.asarray(o) - np.asarray(jcm.center_shift)
+    cen = np.asarray(jcm.blk)[0:3, np.minimum(blk_s, kreal - 1)].T
+    d = cen - o + rng.normal(size=(n, 3)) * 0.05
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    od = np.concatenate([o, d, rng.uniform(5.0, 40.0, (n, 1)), np.ones((n, 1))],
+                        axis=1).astype(np.float32)
+    feat = np.asarray(jpairs._feat16t(jnp.asarray(od)))
+    want = np.asarray(jpairs._pair_runs_pallas(jnp.asarray(blk_s), jnp.asarray(feat),
+                                               jcm.w, jcm.block, 256, kreal, True))
+    got = tpairs.pair_runs(_t(blk_s), _t(feat), tcm.w, tcm.block, 256, kreal).numpy()
+    assert (want < tpairs._PBIG).sum() > 150  # front faces hit
+    assert (got[800:] == tpairs._PBIG).all()
+    np.testing.assert_array_equal(want, got)
+
+
+def _brute_check(o, d, mesh, hit):
+    hb = intersect_mesh_brute(o, d, jax.tree.map(jnp.asarray, mesh), use_bbox=False)
+    t_p, t_b = hit.t.numpy(), np.asarray(hb.t)
+    miss_p, miss_b = t_p >= 1e30, t_b >= 1e30
+    assert (miss_p == miss_b).all(), f"{(miss_p != miss_b).sum()} hit/miss diffs"
+    np.testing.assert_allclose(t_p[~miss_p], t_b[~miss_b], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", [
+    # (subdiv, block, rays, F, ray set): slot 1 with grazing rays on a
+    # 2048-block table (kp > 1024) leaves rays for pass 3; 768 grazing
+    # rays, all mesh-active, take three narrowing rounds (m1 = 256)
+    (3, 64, 4096, 1, "random"),
+    (4, 4, 1024, 1, "grazing"),
+    (3, 64, 4096, 2, "random"),
+    (3, 64, 768, 3, "grazing"),
+    (3, 64, 4096, 8, "random"),
+])
+def test_pairs_match_jax_and_brute(case):
+    subdiv, block, n, F, rays = case
+    mesh, jcm, tcm = _tables(subdiv, block)
+    o, d = _rays(n, seed=n) if rays == "random" else _grazing_rays(n, seed=1)
+    kw = dict(cluster_tile=256, pair_slots=F, **PAIRS)
+    hit_t, stats = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(**kw),
+                                               collect_stats=True)
+    hit_j = jax.jit(lambda o, d: jpairs.intersect_mesh_pairs(o, d, jcm, JCfg(**kw)))(o, d)
+    np.testing.assert_array_equal(np.asarray(hit_j.tri), hit_t.tri.numpy())
+    np.testing.assert_allclose(np.asarray(hit_j.t), hit_t.t.numpy(), rtol=T_RTOL)
+    _brute_check(o, d, mesh, hit_t)
+    assert (hit_t.tri.numpy() >= 0).sum() > n // 50
+    if block == 4:
+        assert tcm.n_blocks > 1024 and stats["p3_rounds"] == 1 and stats["pass3_rays"] > 0
+    if n == 768:
+        assert stats["m1"] == 256 and stats["n1_rounds"] == 3
+    if F == 1:
+        assert stats["p2_rounds"] == 1
+
+
+@pytest.mark.parametrize("max_passes", [1, 2])
+def test_pairs_max_passes_matches_jax(max_passes):
+    """A cut proof chain (``max_passes`` < 3, a measurement mode): the
+    passes past the cut do not run, the result equals the JAX package's
+    with the same cut (ids exactly, t within 1e-6 relative), and it is
+    never nearer than the exact result."""
+    _, jcm, tcm = _tables(4, 4)
+    o, d = _grazing_rays(1024, seed=1)
+    kw = dict(cluster_tile=256, pair_slots=1, **PAIRS)
+    hit_t, stats = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(**kw),
+                                               max_passes=max_passes, collect_stats=True)
+    hit_j = jax.jit(lambda o, d: jpairs.intersect_mesh_pairs(
+        o, d, jcm, JCfg(**kw), max_passes=max_passes))(o, d)
+    np.testing.assert_array_equal(np.asarray(hit_j.tri), hit_t.tri.numpy())
+    np.testing.assert_allclose(np.asarray(hit_j.t), hit_t.t.numpy(), rtol=T_RTOL)
+    assert stats["p3_rounds"] == 0 and stats["p2_rounds"] == (max_passes - 1)
+    exact = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(**kw))
+    assert (exact.t <= hit_t.t).all()
+
+
+def test_pairs_wide_window_skips_pass_two():
+    """pair_slots >= F2 leaves pass 2 no window: the unproven rays go
+    straight to the exhaustive walk, and the result stays exact."""
+    mesh, _, tcm = _tables(4, 4)
+    o, d = _grazing_rays(512, seed=3)
+    hit, stats = tpairs.intersect_mesh_pairs(
+        _t(o), _t(d), tcm, TCfg(cluster_tile=256, pair_slots=tpairs.F2, **PAIRS),
+        collect_stats=True)
+    assert stats["p2_rounds"] == 0 and stats["pass3_rays"] > 0
+    _brute_check(o, d, mesh, hit)
+
+
+def test_pairs_t_init_and_active_masking():
+    _, _, tcm = _tables(2)
+    o, d = _rays(512, seed=5)
+    cfg = TCfg(cluster_tile=256, pair_slots=4, **PAIRS)
+    bounded = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, cfg,
+                                          t_init=torch.full((512,), 1e-3))
+    assert (bounded.t >= 1e30).all() and (bounded.tri == -1).all()
+    dead = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, cfg,
+                                       active=torch.zeros((512,), dtype=torch.bool))
+    assert (dead.t >= 1e30).all()
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(pair_bdiag=True), "pair_bdiag"),
+    (dict(binned_shards=4), "binned_shards"),
+])
+def test_pairs_unported_options_raise(kw, match):
+    _, _, tcm = _tables(1)
+    o, d = _rays(256, seed=9)
+    with pytest.raises(NotImplementedError, match=match):
+        tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(cluster_tile=256, **kw))
+
+
+def test_default_config_routes_meshes_to_pairs(tmp_path):
+    scene = tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.0), device="cpu")
+    assert scene.mesh.v0.shape[0] >= TCfg().cluster_min_tris
+    assert mesh_route(scene.mesh, scene.cmesh, TCfg()) == "pairs"
+    assert mesh_route(scene.mesh, scene.cmesh, TCfg(cluster_pairs=False, cluster_walk=True)) == "walk"
+
+
+def test_pairs_render_matches_jax(tmp_path):
+    """48x48, depth 4, 4 spp, a 1,280-triangle sphere in the default
+    config: both packages render the identical scene tables. Bound: mean
+    |d| <= 2e-3 (float rounding moves a path only where a ray grazes an
+    edge)."""
+    jscene = jparser.with_resolution(
+        jparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5),
+                           build_kd=False), 48, 48)
+    tscene = scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
+    kw = dict(trace_depth=4, antialias=True, cluster_tile=256)
+    img_j = np.asarray(jrender(jscene, JCfg(**kw), spp=4, seed=0))
+    img_t = render(tscene, TCfg(**kw), spp=4, seed=0, device="cpu").numpy()
+    assert np.abs(img_j - img_t).mean() <= 2e-3
+
+
+def test_mesh_pairs_48_golden(tmp_path):
+    """The pair-list golden in its own config (tools/goldens.py
+    mesh_pairs_48). Bound: per-pixel atol 2e-3 on every pixel but 490 and
+    518, and mean |d| <= 2e-4. The golden was rendered under jit, where
+    XLA's CPU compiler fuses multiply-adds: the first hit of those two
+    pixels (no antialiasing, so every iteration) lands one ulp away on a
+    wall, and their paths branch there
+    (``test_mesh_pairs_48_golden_pixels_branch_under_jit``). The port
+    computes unfused, as the JAX package does when run eagerly."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 4, 2.0),
+                           device="cpu"), 48, 48)
+    img = render(scene, TCfg(trace_depth=4, cluster_tile=256, **PAIRS), spp=8,
+                 seed=0, device="cpu").numpy()
+    diff = np.abs(img - np.load(os.path.join(GOLDENS, "mesh_pairs_48.npy")))
+    off = np.flatnonzero((diff > 2e-3).any(axis=-1))
+    assert set(off.tolist()) <= set(JIT_BRANCHED_PIXELS), off
+    assert diff.mean() <= 2e-4
+
+
+def test_mesh_pairs_48_golden_pixels_branch_under_jit():
+    """Why pixels 490 and 518 leave the golden: their camera rays first
+    hit a wall, and under jit that t is an ulp away from the JAX package's
+    eager t, which the port equals bit for bit (two other pixels agree in
+    all three)."""
+    jscene = jparser.with_resolution(jparser.load_scene(CORNELL), 48, 48)
+    cfg = JCfg(trace_depth=4, cluster_tile=256)
+    assert not cfg.antialias  # every iteration casts the same camera rays
+    key = bounce_key(jax.random.PRNGKey(0), jnp.int32(1), 0)
+    rays = jcam.generate_rays(jscene.camera, cfg, key, cfg.trace_depth)
+    px = [*JIT_BRANCHED_PIXELS, 100, 1000]
+    o = np.asarray(rays.origin)[:, px].T
+    d = np.asarray(rays.direction)[:, px].T
+    t_jit = np.asarray(jax.jit(lambda o, d: jisect.intersect_geoms(o, d, jscene.geoms))(o, d).t)
+    with jax.disable_jit():
+        t_eager = np.asarray(jisect.intersect_geoms(o, d, jscene.geoms).t)
+    tgeoms = scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu").geoms
+    t_port = tisect.intersect_geoms(_t(o), _t(d), tgeoms).t.numpy()
+    np.testing.assert_array_equal(t_port, t_eager)
+    ulp_away = ((t_jit == np.nextafter(t_eager, np.float32(np.inf)))
+                | (t_jit == np.nextafter(t_eager, np.float32(-np.inf))))
+    assert ulp_away[:2].all() and (t_jit[2:] == t_eager[2:]).all()
