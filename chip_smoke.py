@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from ``kdtreepathtraceroptimization_tpu_
+Builds the port's seven CUDA kernels from ``kdtreepathtraceroptimization_tpu_
 torch/csrc`` (one nvcc per source, in parallel) and drives its three mesh
-render paths on Cornell + an 81,920-triangle icosphere at 800x800:
+render paths and its gradient path on Cornell + an 81,920-triangle
+icosphere at 800x800:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernels' build (time, registers and shared memory per kernel);
@@ -28,7 +29,22 @@ render paths on Cornell + an 81,920-triangle icosphere at 800x800:
    at depth 8, each with ms/iteration, rays/s, peak memory and a profile;
    a short ``enable_kd=False`` render through the brute-force kernel.
    Every kernel must launch on some path, and every image must be finite
-   and non-black.
+   and non-black;
+6. ``[train]``: 12 steps of ``make_train_step`` on the pair path at depth
+   8 from halved material colours towards the port's render of the true
+   ones, with every loss, ms/step, the forward/backward split and peak
+   memory; the losses must be finite and fall;
+7. ``[geomgrad]``: one reverse pass of that render MSE with respect to the
+   materials and the cluster table's vertex and normal tables, with the
+   icosphere subsurface (the radiance of the other materials does not
+   depend on the geometry); the scatter-add kernel (kernel 4, the
+   gather's backward) against its plain version on one bounce's captured
+   cotangents and on a full-width depth AOV's, per entry within 1e-5 of
+   the sum of |contributions| (float atomics add in any order); the
+   vertex and normal gradients finite and not all zero;
+8. ``[gradcheck]``: the JAX package's two finite-difference checks of the
+   pair path (tests/test_grad.py:244-264 and 275-310) on the card, at the
+   ``mesh_pairs_48`` scene.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -48,12 +64,17 @@ import time
 import numpy as np
 import torch
 
+from kdtreepathtraceroptimization_tpu_torch import make_train_step, render_loss
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
+from kdtreepathtraceroptimization_tpu_torch.convert import materials_to_torch, with_tris
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf as tmxu
 from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
 from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
-from kdtreepathtraceroptimization_tpu_torch.ops.rng import prng_key
+from kdtreepathtraceroptimization_tpu_torch.ops.camera import generate_rays
+from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
+from kdtreepathtraceroptimization_tpu_torch.ops.rng import bounce_key, prng_key
+from kdtreepathtraceroptimization_tpu_torch.ops.vecmath import v3_to_rows
 from kdtreepathtraceroptimization_tpu_torch.render import integrator as tint
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import (
     make_render_block_fn,
@@ -106,6 +127,8 @@ KERNELS = (
      "kdtreepathtraceroptimization_tpu/ops/walk.py:186"),
     ("gather_cols", tmesh.GATHER_COLS, "kdtreepathtraceroptimization_tpu_torch/csrc/gather_cols.cu",
      "kdtreepathtraceroptimization_tpu/ops/mesh.py:170"),
+    ("scatter_cols", tmesh.SCATTER_COLS, "kdtreepathtraceroptimization_tpu_torch/csrc/scatter_cols.cu",
+     "kdtreepathtraceroptimization_tpu/ops/mesh.py:200"),
     ("pair_extract", tpairs.EXTRACT, "kdtreepathtraceroptimization_tpu_torch/csrc/pair_extract.cu",
      "kdtreepathtraceroptimization_tpu/ops/pairs.py:149"),
     ("pair_runs", tpairs.PAIR_RUNS, "kdtreepathtraceroptimization_tpu_torch/csrc/pair_runs.cu",
@@ -115,7 +138,13 @@ KERNELS = (
 )
 # The path whose launch count each kernel's record reports.
 RECORD_PATH = {"slab_cull": "walk", "walk": "walk", "gather_cols": "pairs",
-               "pair_extract": "pairs", "pair_runs": "pairs", "mxu_bf": "brute"}
+               "scatter_cols": "geomgrad", "pair_extract": "pairs", "pair_runs": "pairs",
+               "mxu_bf": "brute"}
+# The cluster table's triangle tables that the gradient phases differentiate.
+TRI_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2")
+# The subsurface transmittance [geomgrad] gives the icosphere's material
+# (tests/test_grad.py's CAMERA_SSS_SCENE material 1).
+SSS_TRANSMITTANCE = (0.9, 0.7, 0.5)
 
 
 def log(*args):
@@ -150,6 +179,15 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def zero_counts() -> None:
+    for _, kernel, _, _ in KERNELS:
+        kernel.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: kernel.launches for name, kernel, _, _ in KERNELS}
 
 
 def mesh_scene(subdiv: int, radius: float, res: int, device):
@@ -505,8 +543,7 @@ def phase_main_path(name, scene, config, device, expect, block: int = 2,
     n = res * res
     step = make_render_block_fn(scene, config, block, device=device)
     key = prng_key(0)
-    for _, kernel, _, _ in KERNELS:
-        kernel.launches = 0
+    zero_counts()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     # index -1 records nothing: it only counts the pair path's set-size reads
@@ -521,7 +558,7 @@ def phase_main_path(name, scene, config, device, expect, block: int = 2,
             sync(device)
             per_iter.append((time.perf_counter() - t) * 1e3 / block)
             it += block
-    launches = {kname: kernel.launches for kname, kernel, _, _ in KERNELS}
+    launches = read_counts()
     img = film / (it - 1)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     ms = statistics.median(per_iter)
@@ -596,6 +633,220 @@ def phase_profile(name, step, film, key, it, block, device) -> None:
             f"{e.count // block:6d} launches/iter  {e.key[:90]}")
 
 
+def leaf_tris(cmesh):
+    """``cmesh`` with fresh leaf copies of its vertex and normal tables that
+    require grad, and the leaves."""
+    tris = cmesh.tris._replace(**{
+        f: getattr(cmesh.tris, f).detach().clone().requires_grad_(True) for f in TRI_FIELDS})
+    return with_tris(cmesh, tris), [getattr(tris, f) for f in TRI_FIELDS]
+
+
+def timed(fn, device):
+    """(fn(), its host time in ms up to a device synchronise)."""
+    sync(device)
+    t = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def phase_train(scene, device) -> dict:
+    """12 training steps on the pair path at full width (the JAX package's
+    exp/grad_bench.py and tests/test_grad.py:76-97): the target is the
+    port's render of the true materials (spp 1, seed 1); the steps start
+    from halved colours and use that render's key and iteration."""
+    config = RenderConfig(trace_depth=8, antialias=True)  # the default pair path
+    res = int(scene.camera.resolution[0])
+    n = res * res
+    target = render(scene, config, spp=1, seed=1, device=device).reshape(n, 3)
+    key = prng_key(1)
+    perturbed = scene._replace(materials=scene.materials._replace(
+        color=np.asarray(scene.materials.color) * 0.5))
+    init_state, train_step = make_train_step(perturbed, config, target, learning_rate=2e-2,
+                                             device=device)
+    state = init_state()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms = [], []
+    for _ in range(12):
+        (state, loss), ms = timed(lambda: train_step(state, key, 1), device)
+        losses.append(loss.item())
+        step_ms.append(ms)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"[train] {res}x{res}, depth 8, {int(scene.mesh.v0.shape[0])} triangles, pair path, "
+        f"Adam lr 2e-2, 12 steps; losses: {', '.join(f'{v:.6g}' for v in losses)}")
+    log(f"[train] ms/step {statistics.median(step_ms[1:4]):.2f} (median of steps 2-4; all: "
+        f"{', '.join(f'{v:.1f}' for v in step_ms)}), peak memory {peak / 2**20:.1f} MiB")
+    log(f"[train] launches over the 12 steps: {launches}")
+    # the forward/backward split, three times, without an optimizer step
+    fwd, bwd = [], []
+    for _ in range(3):
+        loss, ms_f = timed(lambda: render_loss(state.materials, perturbed, config, key, 1,
+                                               target), device)
+        _, ms_b = timed(lambda: torch.autograd.grad(loss, list(state.materials),
+                                                    allow_unused=True), device)
+        fwd.append(ms_f)
+        bwd.append(ms_b)
+    log(f"[train] forward {statistics.median(fwd):.2f} ms, backward {statistics.median(bwd):.2f} "
+        f"ms (medians of 3: {', '.join(f'{a:.1f}/{b:.1f}' for a, b in zip(fwd, bwd))})")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train] non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    return launches
+
+
+def check_scatter(label, ct, tri, nt) -> dict:
+    """Kernel 4 against its plain version on (ct, tri): per entry within
+    1e-5 of the sum of |contributions|; its time, bound and index_add_'s."""
+    got = tmesh.scatter_cols(ct, tri, nt)
+    want = tmesh._scatter_cols_ref(ct, tri, nt)
+    scale = tmesh._scatter_cols_ref(ct.abs(), tri, nt)
+    sync(ct.device)
+    err = (got - want).abs()
+    lanes = int((ct != 0).any(dim=0).sum())
+    worst = (err / scale.clamp_min(1e-30))[scale > 0]
+    log(f"[geomgrad] scatter_cols on {label}: ct [{ct.shape[0]},{ct.shape[1]}] ({lanes} lanes "
+        f"with a non-zero cotangent), table [{nt},{ct.shape[0]}]; max |d| {err.max().item():.3g}, "
+        f"max |d| / sum|contributions| {worst.max().item() if worst.numel() else 0.0:.3g} "
+        f"(bound 1e-5)")
+    if not (err <= 1e-5 * scale).all():
+        raise AssertionError(f"scatter_cols differs from its plain version on {label}")
+    c, n = ct.shape
+    tri64 = tri.long()
+    res = dict(
+        max_abs_err=err.max().item(),
+        ms=time_ms(lambda: tmesh.scatter_cols(ct, tri, nt), 20),
+        plain_ms=time_ms(lambda: tmesh._scatter_cols_ref(ct, tri, nt), 10),
+        # one PyTorch call for the same [T, C] result (into a zeroed table)
+        library_ms=time_ms(lambda: torch.zeros((nt, c), device=ct.device).index_add_(
+            0, tri64, ct.T), 20),
+        **bound((c * n + n + nt * c) * 4, c * n))
+    log(f"[geomgrad] scatter_cols on {label}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, index_add_ {res['library_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
+
+
+def phase_geomgrad(scene, device):
+    """One reverse pass of the render MSE with respect to the materials and
+    the vertex and normal tables, at full width. Returns (kernel 4's
+    result on one bounce's captured cotangents, the launch counts)."""
+    config = RenderConfig(trace_depth=8, antialias=True, enable_sss=True)
+    res = int(scene.camera.resolution[0])
+    n = res * res
+    mesh_mats = np.unique(scene.mesh.material_id.cpu().numpy())
+    if mesh_mats.size != 1:
+        raise AssertionError(f"the icosphere has materials {mesh_mats}, expected one")
+    trans = np.array(scene.materials.transmittance)
+    trans[int(mesh_mats[0])] = SSS_TRANSMITTANCE
+    true_scene = scene._replace(materials=scene.materials._replace(transmittance=trans))
+    target = render(true_scene, config, spp=1, seed=1, device=device).reshape(n, 3)
+    mats = materials_to_torch(true_scene.materials, device, requires_grad=True)
+    with torch.no_grad():
+        mats.color.mul_(0.5)
+    key = prng_key(1)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    with Recorder(tmesh, "scatter_cols", 0) as rec:
+        cm, leaves = leaf_tris(scene.cmesh)
+        gscene = scene._replace(cmesh=cm)
+        loss, ms_f = timed(lambda: render_loss(mats, gscene, config, key, 1, target), device)
+        grads, ms_b = timed(lambda: torch.autograd.grad(loss, list(mats) + leaves,
+                                                        allow_unused=True), device)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"[geomgrad] {res}x{res}, depth 8, SSS on the icosphere: loss {loss.item():.6g}; "
+        f"forward {ms_f:.2f} ms, backward {ms_b:.2f} ms, peak memory {peak / 2**20:.1f} MiB")
+    log(f"[geomgrad] launches: {launches} (kernel 4 once per bounce whose hit distance a "
+        f"later bounce reads: every bounce but the last)")
+    tri_grads = grads[len(mats):]
+    for name, g in zip(TRI_FIELDS, tri_grads):
+        if g is None or not torch.isfinite(g).all():
+            raise AssertionError(f"[geomgrad] the {name} gradient is missing or not finite")
+        log(f"[geomgrad] d loss / d {name}: max |g| {g.abs().max().item():.4g}, "
+            f"{int((g != 0).any(dim=1).sum())} of {g.shape[0]} rows non-zero")
+    if not any(g.abs().max().item() > 0 for g in tri_grads):
+        raise AssertionError("[geomgrad] every vertex and normal gradient is zero")
+    if not all(g is None or torch.isfinite(g).all() for g in grads[:len(mats)]):
+        raise AssertionError("[geomgrad] a material gradient is not finite")
+    nt = scene.cmesh.packed.shape[0]
+    ct, tri, _ = rec.args
+    result = check_scatter(f"the last bounce the reverse pass reaches (call 1 of "
+                           f"{rec.calls})", ct, tri, nt)
+
+    # a denser input on the same path: the depth AOV of the camera rays
+    # that hit the mesh (every such lane has a non-zero cotangent)
+    rays = generate_rays(scene.camera, config, bounce_key(key, 1, 0), 1, device)
+    with Recorder(tmesh, "scatter_cols", 0) as rec2:
+        cm, leaves = leaf_tris(scene.cmesh)
+        hit = tint.intersect_scene(rays.origin, rays.direction, scene.geoms, scene.mesh,
+                                   config, cmesh=cm)
+        on_mesh = hit.material_id == int(mesh_mats[0])
+        torch.autograd.grad(torch.where(on_mesh & (hit.t < BIG), hit.t, 0.0).sum(), leaves,
+                            allow_unused=True)
+    ct, tri, _ = rec2.args
+    check_scatter(f"the depth AOV of {int(on_mesh.sum())} camera rays on the mesh", ct, tri, nt)
+    return result, launches
+
+
+def phase_gradcheck(device) -> None:
+    """tests/test_grad.py's pair-path finite-difference checks on the card,
+    at the mesh_pairs_48 scene: the largest colour gradient (eps 3e-3,
+    within 2e-2) and the three largest vertex depth-AOV gradients (eps
+    1e-3, two of three within 1e-1)."""
+    scene = mesh_scene(4, 2.0, 48, device)
+    config = RenderConfig(trace_depth=4, cluster_tile=256, **PAIRS)
+    key = prng_key(0)
+    target = torch.zeros((48 * 48, 3), device=device)
+    mats = materials_to_torch(scene.materials, device, requires_grad=True)
+    (g,) = torch.autograd.grad(render_loss(mats, scene, config, key, 1, target), mats.color)
+    i, c = divmod(int(g.abs().argmax()), 3)
+
+    def loss_at(eps):
+        m = materials_to_torch(scene.materials, device)
+        m.color[i, c] += eps
+        with torch.no_grad():
+            return render_loss(m, scene, config, key, 1, target).item()
+
+    fd = (loss_at(3e-3) - loss_at(-3e-3)) / 6e-3
+    ad = g[i, c].item()
+    log(f"[gradcheck] mesh_pairs_48 scene, material color[{i},{c}]: AD {ad:.6g}, FD {fd:.6g} "
+        f"(bound 2e-2 relative)")
+    if not abs(fd - ad) <= 2e-2 * max(abs(fd), abs(ad), 1e-3):
+        raise AssertionError("[gradcheck] material gradient differs from finite differences")
+
+    rays = generate_rays(scene.camera, config, bounce_key(key, 1, 0), 1, device)
+    o, d = (v3_to_rows(v) for v in (rays.origin, rays.direction))
+    with torch.no_grad():
+        win = tpairs.intersect_mesh_pairs(o, d, scene.cmesh, config).tri
+    rows, counts = torch.unique(win[win >= 0], return_counts=True)
+    lane_mask = win == rows[counts.argmax()]
+
+    def depth_loss(v0):
+        cm = with_tris(scene.cmesh, scene.cmesh.tris._replace(v0=v0))
+        hit = tint.intersect_scene(o, d, scene.geoms, scene.mesh, config, cmesh=cm)
+        return torch.where(lane_mask & (hit.t < BIG), hit.t, 0.0).sum()
+
+    v0 = scene.cmesh.tris.v0.detach().clone().requires_grad_(True)
+    (gd,) = torch.autograd.grad(depth_loss(v0), v0)
+    results = []
+    for idx in gd.abs().flatten().argsort()[-3:].tolist():
+        i, c = divmod(idx, 3)
+        e = torch.zeros_like(v0)
+        e[i, c] = 1e-3
+        with torch.no_grad():
+            fd = (depth_loss(v0 + e) - depth_loss(v0 - e)).item() / 2e-3
+        results.append((gd[i, c].item(), fd))
+    agree = sum(abs(f - a) <= 1e-1 * max(abs(f), abs(a), 1e-3) for a, f in results)
+    log(f"[gradcheck] vertex depth AOV ({int(lane_mask.sum())} lanes on one triangle), (AD, FD): "
+        f"{', '.join(f'({a:.6g}, {f:.6g})' for a, f in results)}; {agree} of 3 within 1e-1 "
+        f"(bound: 2 of 3)")
+    if agree < 2:
+        raise AssertionError("[gradcheck] vertex gradients differ from finite differences")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -631,6 +882,9 @@ def main() -> int:
                                  device, ("mxu_bf", "gather_cols"), block=1,
                                  timed_calls=1, profile=False),
     }
+    paths["train"] = phase_train(scene, device)
+    results["scatter_cols"], paths["geomgrad"] = phase_geomgrad(scene, device)
+    phase_gradcheck(device)
     unused = [k for k, _, _, _ in KERNELS if not any(p[k] for p in paths.values())]
     if unused:
         raise AssertionError(f"kernels launched on no path: {unused}")

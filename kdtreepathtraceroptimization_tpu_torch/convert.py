@@ -7,11 +7,18 @@ np.asarray, scene)``), or the port's own — and returns the port's
 and the small tables (camera, geoms, materials) as numpy on the host.
 The JAX scene's KD table, if any, is not carried: the port has no KD
 intersector yet.
+
+For gradients, ``materials_to_torch`` carries a material table onto a
+device as tensors (optionally leaves that require grad) and
+``materials_to_numpy`` carries it back; ``with_tris`` gives a cluster
+table new triangle tables (for example ones that require grad) and builds
+its [T, 19] record from them, once per differentiated call.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import ClusterMesh
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import pack_tris
@@ -60,3 +67,30 @@ def scene_from_numpy(scene, device) -> SceneData:
         mesh=None if scene.mesh is None else _mesh(scene.mesh, device),
         cmesh=cmesh,
     )
+
+
+def materials_to_torch(materials, device, requires_grad: bool = False) -> MaterialSoA:
+    """A material table (numpy or tensors) as float32 tensors on
+    ``device``; with ``requires_grad`` each field is a fresh leaf that
+    requires grad."""
+    device = resolve_device(device)
+    fields = (torch.tensor(np.asarray(a, np.float32), device=device)
+              if not isinstance(a, torch.Tensor)
+              else a.detach().to(device=device, dtype=torch.float32, copy=True)
+              for a in materials)
+    return MaterialSoA(*(f.requires_grad_(requires_grad) for f in fields))
+
+
+def materials_to_numpy(materials) -> MaterialSoA:
+    """A material table of tensors back on the host as numpy arrays."""
+    return MaterialSoA(*(a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                         else np.asarray(a) for a in materials))
+
+
+def with_tris(cmesh: ClusterMesh, tris: MeshSoA) -> ClusterMesh:
+    """``cmesh`` with triangle tables ``tris`` and its [T, 19] record built
+    from them, so gradients reach them through the hit expansion. The
+    intersectors keep reading ``cmesh``'s own block weights and bounds:
+    the winner choice carries no gradient. Build it once per
+    differentiated call; the record is shared by every bounce."""
+    return cmesh._replace(tris=tris, packed=pack_tris(tris))

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from kdtreepathtraceroptimization_tpu_torch.ops import sampling, vecmath as vm
@@ -36,25 +35,27 @@ class MaterialLanes(NamedTuple):
 def gather_materials(materials, material_id) -> MaterialLanes:
     """The material table rows hit by each ray (pathtrace.cu:2327).
 
-    ``materials`` is the host numpy table. Up to 16 rows, each field is a
-    chain of selects over the rows, as in the JAX package; larger tables
-    gather. Misses (id < 0) clamp to row 0 — callers mask on hit.
+    ``materials`` is a ``MaterialSoA`` of numpy arrays or of tensors (on
+    ``material_id``'s device, as ``convert.materials_to_torch`` makes
+    them; gradients flow to tensors that require them). Up to 16 rows,
+    each field is a chain of selects over the rows, as in the JAX package;
+    larger tables gather. Misses (id < 0) clamp to row 0 — callers mask on
+    hit.
     """
     mid = torch.clamp_min(material_id, 0)
-    m_rows = int(np.shape(materials.emittance)[0])
+    m_rows = int(materials.emittance.shape[0])
 
     def field(col):
-        col = np.asarray(col, np.float32)
+        col = torch.as_tensor(col, dtype=torch.float32, device=mid.device)
         if m_rows <= 16:
-            out = torch.full(mid.shape, float(col[0]), dtype=torch.float32,
-                             device=mid.device)
+            out = col[0].expand(mid.shape)
             for m in range(1, m_rows):
-                out = torch.where(mid == m, float(col[m]), out)
+                out = torch.where(mid == m, col[m], out)
             return out
-        return torch.as_tensor(col, device=mid.device)[mid.long()]
+        return col[mid.long()]
 
     def field3(mat3):
-        mat3 = np.asarray(mat3, np.float32)
+        mat3 = torch.as_tensor(mat3, dtype=torch.float32, device=mid.device)
         return V3(field(mat3[:, 0]), field(mat3[:, 1]), field(mat3[:, 2]))
 
     return MaterialLanes(

@@ -8,6 +8,12 @@ winner's record (vertices, normals, material) into per-field channel
 arrays with kernel 3 (``csrc/gather_cols.cu``), recomputes t/u/v with one
 Moller-Trumbore, interpolates the normal and offsets the hit point
 (reference: pathtrace.cu:981-1007).
+
+The choice of triangle carries no gradient; t/u/v, the normal and the
+point do, through the gathered row. The gather is an autograd function
+whose backward is kernel 4 (``csrc/scatter_cols.cu``), a scatter-add of
+the column cotangents into the [T, 19] record, from where they reach the
+mesh's vertex and normal tables.
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import CudaKernel, 
 
 GATHER_COLS = CudaKernel(
     "gather_cols", "gather_cols",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int])
+SCATTER_COLS = CudaKernel(
+    "scatter_cols", "scatter_cols",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int])
 
@@ -142,10 +152,8 @@ def _gather_cols_ref(packed, tri):
     return packed[tri.long()].T
 
 
-def gather_cols(packed, tri):
-    """Rows ``packed[tri]`` as channel arrays [C, n] (kernel 3).
-
-    ``tri`` [n] int32 must index rows of ``packed`` [T, C]."""
+def _gather_cols(packed, tri):
+    """Kernel 3 on CUDA tensors, the plain version on CPU tensors."""
     if packed.device.type == "cpu":
         return _gather_cols_ref(packed, tri)
     if packed.device.type != "cuda":
@@ -160,6 +168,55 @@ def gather_cols(packed, tri):
         GATHER_COLS.launch(device, packed.data_ptr(), tri.data_ptr(),
                            out.data_ptr(), n, c)
     return out
+
+
+def _scatter_cols_ref(ct, tri, nt):
+    """Plain adjoint of the gather: ``grad[tri[i], c] += ct[c, i]`` ([T, C])."""
+    out = torch.zeros((nt, ct.shape[0]), dtype=ct.dtype, device=ct.device)
+    return out.index_add_(0, tri.long(), ct.T)
+
+
+def scatter_cols(ct, tri, nt: int):
+    """The row cotangents [T, C] of ``gather_cols`` from its column
+    cotangents ``ct`` [C, n] (kernel 4): ``grad[tri[i], c] += ct[c, i]``.
+
+    ``tri`` [n] int32 must index rows of a [``nt``, C] table."""
+    if ct.device.type == "cpu":
+        return _scatter_cols_ref(ct, tri, nt)
+    if ct.device.type != "cuda":
+        raise ValueError(f"scatter_cols runs on CUDA or CPU tensors, not {ct.device}")
+    device = ct.device
+    c, n = ct.shape
+    check_tensor(ct, "ct", torch.float32, (c, n), device)
+    check_tensor(tri, "tri", torch.int32, (n,), device)
+    out = torch.zeros((nt, c), dtype=torch.float32, device=device)
+    if n:
+        SCATTER_COLS.launch(device, ct.data_ptr(), tri.data_ptr(),
+                            out.data_ptr(), n, c)
+    return out
+
+
+class _GatherCols(torch.autograd.Function):
+    """``packed[tri].T`` with kernel 3 forward and kernel 4 backward."""
+
+    @staticmethod
+    def forward(ctx, packed, tri):
+        ctx.save_for_backward(tri)
+        ctx.nt = packed.shape[0]
+        return _gather_cols(packed, tri)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (tri,) = ctx.saved_tensors
+        return scatter_cols(ct.contiguous(), tri, ctx.nt), None
+
+
+def gather_cols(packed, tri):
+    """Rows ``packed[tri]`` as channel arrays [C, n] (kernel 3), with
+    gradients to ``packed`` through ``scatter_cols`` (kernel 4).
+
+    ``tri`` [n] int32 must index rows of ``packed`` [T, C]."""
+    return _GatherCols.apply(packed, tri)
 
 
 def pack_tris(mesh) -> torch.Tensor:

@@ -6,8 +6,8 @@ expression reads, and rounds, as the JAX one does: the same operations
 in the same order. [N, 3] rows appear only at module boundaries
 (intersector tables, the film).
 
-A V3 channel may be a tensor or a Python float (a camera or geom
-constant); arithmetic between the two broadcasts.
+A V3 channel may be a tensor or a Python float (a geom constant);
+arithmetic between the two broadcasts.
 """
 
 from __future__ import annotations
@@ -56,12 +56,6 @@ def v3_from_rows(a: torch.Tensor) -> V3:
 def v3_to_rows(v: V3) -> torch.Tensor:
     """V3 -> [..., 3] tensor (module-boundary conversion)."""
     return torch.stack([v.x, v.y, v.z], dim=-1)
-
-
-def v3_splat(vec3) -> V3:
-    """A length-3 host constant -> V3 of Python floats."""
-    a = np.asarray(vec3)
-    return V3(float(a[0]), float(a[1]), float(a[2]))
 
 
 def as_rows(x) -> torch.Tensor:

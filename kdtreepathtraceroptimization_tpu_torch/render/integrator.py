@@ -11,9 +11,16 @@ Meshes take the pair-list intersector (``ops/pairs.py``, the default
 for a mesh with a cluster table), the exact cluster walk (``ops/walk.py``)
 or, with ``enable_kd=False``, a brute force (``ops/mxu_bf.py`` or
 ``ops/mesh.py``). The KD walk, the cluster-rounds and binned
-intersectors, the wavefront reorderings (compaction, material sort), the
-ray cache and gradients raise ``NotImplementedError``. Entry points run
-on the CUDA device unless the caller passes ``device="cpu"``.
+intersectors, the wavefront reorderings (compaction, material sort) and
+the ray cache raise ``NotImplementedError``. Entry points run on the CUDA
+device unless the caller passes ``device="cpu"``.
+
+``trace_iteration`` and ``trace_rays`` are differentiable (the JAX
+package's inverse-rendering path, ``models/inverse.py``): with respect to
+the material table and the camera when they are tensors, and to the mesh's
+triangle tables through the hit expansion's [T, 19] record. The
+intersectors run without a graph: the choice of triangle is discrete.
+``make_render_block_fn`` renders without a graph.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Callable, Optional
 import torch
 
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
-from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
+from kdtreepathtraceroptimization_tpu_torch.convert import materials_to_torch, scene_from_numpy
 from kdtreepathtraceroptimization_tpu_torch.ops import bsdf, mxu_bf, shade
 from kdtreepathtraceroptimization_tpu_torch.ops import intersect as isect
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as mesh_ops
@@ -66,9 +73,6 @@ def _check_supported(scene, config: RenderConfig) -> None:
     if config.ray_cache:
         raise NotImplementedError("ray_cache=True is not ported yet")
     mesh_route(scene.mesh, scene.cmesh, config)
-    for table in (scene.mesh, scene.cmesh and scene.cmesh.tris):
-        if table is not None and any(getattr(a, "requires_grad", False) for a in table):
-            raise NotImplementedError("gradients through the render are not ported yet")
 
 
 def intersect_scene(origin, direction, geoms, mesh, config: RenderConfig,
@@ -79,7 +83,9 @@ def intersect_scene(origin, direction, geoms, mesh, config: RenderConfig,
     ``active`` lets finished lanes skip it (reference dispatch:
     pathtrace.cu:2483-2559). The brute-force routes need ``mesh_packed``,
     the mesh's [T, 19] record (``ops.mesh.pack_tris``), built once by the
-    caller; the cluster routes read ``cmesh.packed``.
+    caller; the cluster routes read ``cmesh.packed``. The mesh
+    intersectors run without a graph (the JAX package's ``stop_gradient``):
+    gradients reach the mesh through ``packed``.
     """
     hit = isect.intersect_geoms(origin, direction, geoms)
     route = mesh_route(mesh, cmesh, config)
@@ -87,21 +93,23 @@ def intersect_scene(origin, direction, geoms, mesh, config: RenderConfig,
         return hit
     origin = vm.as_rows(origin)
     direction = vm.as_rows(direction)
-    if route in ("pairs", "walk"):
-        intersect = intersect_mesh_pairs if route == "pairs" else intersect_mesh_walk
-        tri_hit = intersect(origin, direction, cmesh, config, t_init=hit.t,
-                            active=active)
-        packed = cmesh.packed
-    else:
-        if mesh_packed is None:
-            raise ValueError("the brute-force routes need mesh_packed, the "
-                             "mesh's [T, 19] record (ops.mesh.pack_tris)")
-        if route == "mxu":
-            tri_hit = mxu_bf.intersect_mesh_mxu(origin, direction, mesh, t_max=hit.t)
+    if route in ("mxu", "brute") and mesh_packed is None:
+        raise ValueError("the brute-force routes need mesh_packed, the "
+                         "mesh's [T, 19] record (ops.mesh.pack_tris)")
+    t_init = hit.t.detach()
+    with torch.no_grad():
+        if route == "pairs":
+            tri_hit = intersect_mesh_pairs(origin, direction, cmesh, config,
+                                           t_init=t_init, active=active)
+        elif route == "walk":
+            tri_hit = intersect_mesh_walk(origin, direction, cmesh, config,
+                                          t_init=t_init, active=active)
+        elif route == "mxu":
+            tri_hit = mxu_bf.intersect_mesh_mxu(origin, direction, mesh, t_max=t_init)
         else:
             tri_hit = mesh_ops.intersect_mesh_brute(origin, direction, mesh,
                                                     use_bbox=config.use_bbox)
-        packed = mesh_packed
+    packed = cmesh.packed if route in ("pairs", "walk") else mesh_packed
     mesh_hit = mesh_ops.tri_hit_to_hit(origin, direction, tri_hit, packed)
     return isect._min_hit(hit, mesh_hit)
 
@@ -167,19 +175,21 @@ def make_render_block_fn(scene, config: RenderConfig, block: int,
                          device=None) -> Callable:
     """A ``(film, base_key, start_iter) -> film`` step that adds
     ``block`` iterations ``start_iter .. start_iter + block - 1`` to
-    ``film`` in place. Scene tables move to the device once, here, and the
-    brute-force routes' [T, 19] triangle record is built once, here."""
+    ``film`` in place. Scene tables (the material table as tensors) move
+    to the device once, here, and the brute-force routes' [T, 19] triangle
+    record is built once, here. The step builds no autograd graph."""
     device = resolve_device(device)
     use_full_f32()
     _check_supported(scene, config)
     scene = scene_from_numpy(scene, device)
+    materials = materials_to_torch(scene.materials, device)
     brute = mesh_route(scene.mesh, scene.cmesh, config) in ("mxu", "brute")
     mesh_packed = mesh_ops.pack_tris(scene.mesh) if brute else None
 
     @torch.no_grad()
     def step(film: torch.Tensor, base_key: Key, start_iter: int) -> torch.Tensor:
         for i in range(block):
-            film += trace_iteration(scene.geoms, scene.materials, scene.mesh,
+            film += trace_iteration(scene.geoms, materials, scene.mesh,
                                     scene.camera, config, base_key,
                                     int(start_iter) + i, cmesh=scene.cmesh,
                                     device=device, mesh_packed=mesh_packed)

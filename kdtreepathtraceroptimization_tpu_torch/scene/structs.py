@@ -5,9 +5,11 @@ The same containers and field names as the JAX package's
 package kept everything as pytrees, here the split is by size:
 
 - ``Camera``, ``GeomSoA`` and ``MaterialSoA`` are a handful of rows and
-  stay numpy arrays on the host. The integrator reads them as Python
-  scalars (one static test per geom, one select per material row), just
-  as the JAX package keeps such small leaves concrete.
+  stay numpy arrays on the host. The integrator reads the geoms as Python
+  scalars (one static test per geom), just as the JAX package keeps such
+  small leaves concrete. Materials and the camera may also be tensors
+  (``convert.materials_to_torch``, ``ops.camera.derive_camera``), which is
+  how gradients reach them.
 - ``MeshSoA`` and the cluster table (``ops.cluster.ClusterMesh``) are
   tensors on the render device once the scene is loaded or converted
   (``convert.scene_from_numpy``); the loaders build them in numpy first.

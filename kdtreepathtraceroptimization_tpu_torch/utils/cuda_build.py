@@ -25,7 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("slab_cull", "walk", "gather_cols", "pair_extract", "pair_runs", "mxu_bf")
+SOURCES = ("slab_cull", "walk", "gather_cols", "scatter_cols", "pair_extract", "pair_runs",
+           "mxu_bf")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

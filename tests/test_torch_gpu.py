@@ -14,7 +14,9 @@ gather-to-columns bit for bit; walk and brute-force triangle ids exactly
 and t within 1e-5 relative (their 10-term sums may round differently
 from the batched product); the pair test's loc on >= 99.9% of real
 pairs and t within 2^-12 relative (the same rounding, seen through the
-2^-13 truncation of the packed key).
+2^-13 truncation of the packed key); the scatter-add of kernel 4 per
+entry within 1e-5 of the sum of the |contributions| to it (its float
+atomics add in an order that changes from run to run).
 """
 
 import numpy as np
@@ -106,6 +108,63 @@ def test_gather_cols_kernel_bit_equal(cuda, n, c):
     packed = torch.randn((4096, c), generator=g).to(cuda)
     tri = torch.randint(0, 4096, (n,), generator=g, dtype=torch.int32).to(cuda)
     assert torch.equal(tmesh.gather_cols(packed, tri), packed[tri.long()].T)
+
+
+@pytest.mark.parametrize("n, c, nt, pattern", [
+    (1000, 19, 4096, "random"),  # n not a multiple of the 256-thread block
+    (640_000, 19, 131_072, "random"),  # the main path's shape
+    (5000, 19, 4096, "one row"),  # every lane adds into row 7
+    (5000, 19, 4096, "zeros"),  # all-zero cotangents: the kernel adds nothing
+    (3001, 1, 300, "random"),  # one channel
+])
+def test_scatter_cols_kernel_matches_plain(cuda, n, c, nt, pattern):
+    g = torch.Generator(device="cpu").manual_seed(n + c)
+    ct = torch.randn((c, n), generator=g)
+    ct[:, torch.rand(n, generator=g) < 0.5] = 0.0  # miss lanes
+    tri = torch.randint(0, nt, (n,), generator=g, dtype=torch.int32)
+    if pattern == "one row":
+        tri.fill_(7)
+    if pattern == "zeros":
+        ct.zero_()
+    ct, tri = ct.to(cuda), tri.to(cuda)
+    before = tmesh.SCATTER_COLS.launches
+    got = tmesh.scatter_cols(ct, tri, nt)
+    want = tmesh._scatter_cols_ref(ct, tri, nt)
+    assert tmesh.SCATTER_COLS.launches == before + 1
+    assert got.shape == (nt, c)
+    scale = tmesh._scatter_cols_ref(ct.abs(), tri, nt)  # sum of |contributions|
+    assert ((got - want).abs() <= 1e-5 * scale).all()
+    if pattern == "zeros":
+        assert not got.any()
+
+
+def test_scatter_cols_checks_its_arguments(cuda):
+    ct = torch.zeros((19, 8), device=cuda)
+    with pytest.raises(ValueError):
+        tmesh.scatter_cols(ct, torch.zeros(8, dtype=torch.int64, device=cuda), 4)
+    with pytest.raises(ValueError):
+        tmesh.scatter_cols(torch.zeros((8, 19), device=cuda).T, torch.zeros(
+            8, dtype=torch.int32, device=cuda), 4)
+    before = tmesh.SCATTER_COLS.launches
+    out = tmesh.scatter_cols(torch.zeros((19, 0), device=cuda),
+                             torch.zeros(0, dtype=torch.int32, device=cuda), 4)
+    assert out.shape == (4, 19) and not out.any()
+    assert tmesh.SCATTER_COLS.launches == before
+
+
+def test_gather_cols_gradcheck_on_cuda(cuda):
+    """The autograd function on the card, kernel 3 forward and kernel 4
+    backward, in float32: central differences of a copy are exact up to
+    the rounding of x +- eps (atol 1e-3 at eps 1e-2); the atomics make the
+    backward nondeterministic in the last bits (nondet_tol 1e-5)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    packed = torch.randn((64, 19), generator=g).to(cuda).requires_grad_(True)
+    tri = torch.randint(0, 64, (1000,), generator=g, dtype=torch.int32).to(cuda)
+    before = tmesh.SCATTER_COLS.launches
+    assert torch.autograd.gradcheck(lambda p: tmesh.gather_cols(p, tri), (packed,),
+                                    eps=1e-2, atol=1e-3, rtol=1e-3, nondet_tol=1e-5,
+                                    fast_mode=True)
+    assert tmesh.SCATTER_COLS.launches > before
 
 
 def test_wrappers_check_their_arguments(cuda):

@@ -108,10 +108,3 @@ def test_unported_configs_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError):
         render(scene, TCfg(trace_depth=1, **kw), spp=1, device="cpu")
 
-
-def test_gradients_are_not_ported(tmp_path):
-    scene = tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 1, 2.0),
-                               device="cpu")
-    scene.mesh.v0.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="gradients"):
-        render(scene, TCfg(trace_depth=1, **WALK), spp=1, device="cpu")
