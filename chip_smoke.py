@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's seven CUDA kernels from ``kdtreepathtraceroptimization_tpu_
-torch/csrc`` (one nvcc per source, in parallel) and drives its three mesh
+Builds the port's eleven CUDA kernels from ``kdtreepathtraceroptimization_tpu_
+torch/csrc`` (one nvcc per source, in parallel) and drives its five mesh
 render paths and its gradient path on Cornell + an 81,920-triangle
 icosphere at 800x800:
 
@@ -22,19 +22,32 @@ icosphere at 800x800:
    bounce (640,000 rays x 131,072 triangle slots): ids on >= 99.99% of
    rays, t within 2^-12 relative (the pair list reports t truncated by
    its packed key, by < 2^-13);
-4. golden parity: ``cornell_64``, ``mesh_pairs_48`` in its own (pair)
-   config and in walk config, against the JAX package's goldens;
-5. the main paths, each with every launch count zeroed just before and
-   read just after: the pair path (the default config) and the walk path
-   at depth 8, each with ms/iteration, rays/s, peak memory and a profile;
-   a short ``enable_kd=False`` render through the brute-force kernel.
-   Every kernel must launch on some path, and every image must be finite
-   and non-black;
-6. ``[train]``: 12 steps of ``make_train_step`` on the pair path at depth
+4. ``[cluster]``: kernels 9-12 against their plain versions on the inputs
+   the cluster-rounds and binned paths hand them at their second bounce
+   (sphere cull and argmin bins bit for bit; rounds ids on >= 99.99% of
+   rays with t within 1e-5 relative; the sweep the same on a 16,384-ray
+   slice, timed at full size), and both intersectors against the
+   brute-force kernel on every ray of that bounce (ids on >= 99.99%, t
+   within 1e-5 relative), with the flagged-ray count and the repair;
+5. golden parity: ``cornell_64``, ``mesh_pairs_48`` in its own (pair)
+   config and in walk, cluster-rounds and binned config, against the JAX
+   package's goldens;
+6. the main paths, each with every launch count zeroed just before and
+   read just after: the pair path (the default config), the walk, the
+   cluster-rounds and the binned paths at depth 8, each with
+   ms/iteration, rays/s, peak memory and a profile (a path slower than
+   2 s an iteration is timed as one call of one iteration), and for the
+   last two the flagged rays and the repair of every bounce; a short
+   cluster-rounds render with 4 rounds at depth 2, so that the sweep
+   launches on a render whether or not 64 rounds ever flag; a short
+   ``enable_kd=False`` render through the brute-force kernel. Every
+   kernel must launch on some path, and every image must be finite and
+   non-black;
+7. ``[train]``: 12 steps of ``make_train_step`` on the pair path at depth
    8 from halved material colours towards the port's render of the true
    ones, with every loss, ms/step, the forward/backward split and peak
    memory; the losses must be finite and fall;
-7. ``[geomgrad]``: one reverse pass of that render MSE with respect to the
+8. ``[geomgrad]``: one reverse pass of that render MSE with respect to the
    materials and the cluster table's vertex and normal tables, with the
    icosphere subsurface (the radiance of the other materials does not
    depend on the geometry); the scatter-add kernel (kernel 4, the
@@ -42,7 +55,7 @@ icosphere at 800x800:
    cotangents and on a full-width depth AOV's, per entry within 1e-5 of
    the sum of |contributions| (float atomics add in any order); the
    vertex and normal gradients finite and not all zero;
-8. ``[gradcheck]``: the JAX package's two finite-difference checks of the
+9. ``[gradcheck]``: the JAX package's two finite-difference checks of the
    pair path (tests/test_grad.py:244-264 and 275-310) on the card, at the
    ``mesh_pairs_48`` scene.
 
@@ -54,6 +67,7 @@ port.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -67,6 +81,8 @@ import torch
 from kdtreepathtraceroptimization_tpu_torch import make_train_step, render_loss
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
 from kdtreepathtraceroptimization_tpu_torch.convert import materials_to_torch, with_tris
+from kdtreepathtraceroptimization_tpu_torch.ops import binned as tbinned
+from kdtreepathtraceroptimization_tpu_torch.ops import cluster as tcl
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf as tmxu
 from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
@@ -91,6 +107,8 @@ GOLDENS = os.path.join(REPO, "tests", "goldens")
 WORK = os.path.join(REPO, "build", "chip_smoke")
 WALK = dict(cluster=True, cluster_walk=True, cluster_pairs=False)
 PAIRS = dict(cluster=True, cluster_pairs=True)  # the default config
+CLUSTER = dict(cluster=True, cluster_pairs=False)  # cluster rounds
+BINNED = dict(cluster=True, cluster_pairs=False, cluster_binned=True)
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
 # bandwidth and float32 outside the tensor cores.
@@ -112,6 +130,15 @@ MT_OPS_PER_TEST = 80 + 8
 # its key and compare it with the kept ones.
 EXTRACT_OPS_PER_PAIR = 3 * 8 + 9
 EXTRACT_OPS_PER_FEASIBLE = 2
+# Float32 operations per (live ray, real block) pair of the sphere cull
+# and the argmin bins: two three-term dot products (3 multiplies, 2 adds
+# each), t_ca (1), dline2 (2 multiplies, 3 add/subtract), the entry
+# (subtract, max), 4 compares and 1 add of the feasibility test, and one
+# min (or compare) into the tile bound or the ray's bin.
+CULL_OPS_PER_PAIR = 5 + 5 + 1 + 5 + 2 + 5 + 1
+# A main path whose first iteration takes longer than this (ms) is timed
+# as one call of one iteration.
+SLOW_ITERATION_MS = 2000.0
 # Rays of the bounce the brute force's kernel is held against its plain
 # version on (the plain version makes a [rays, 4B] product per block).
 BRUTE_SLICE = 16384
@@ -135,11 +162,21 @@ KERNELS = (
      "kdtreepathtraceroptimization_tpu/ops/pairs.py:351"),
     ("mxu_bf", tmxu.BF, "kdtreepathtraceroptimization_tpu_torch/csrc/mxu_bf.cu",
      "kdtreepathtraceroptimization_tpu/ops/mxu_bf.py:187"),
+    ("cluster_cull", tcl.CULL, "kdtreepathtraceroptimization_tpu_torch/csrc/cluster_cull.cu",
+     "kdtreepathtraceroptimization_tpu/ops/cluster.py:305"),
+    ("cluster_rounds", tcl.ROUNDS, "kdtreepathtraceroptimization_tpu_torch/csrc/cluster_rounds.cu",
+     "kdtreepathtraceroptimization_tpu/ops/cluster.py:396"),
+    ("cluster_sweep", tcl.SWEEP, "kdtreepathtraceroptimization_tpu_torch/csrc/cluster_rounds.cu",
+     "kdtreepathtraceroptimization_tpu/ops/cluster.py:432"),
+    ("binned_argmin", tbinned.ARGMIN, "kdtreepathtraceroptimization_tpu_torch/csrc/binned_argmin.cu",
+     "kdtreepathtraceroptimization_tpu/ops/binned.py:73"),
 )
-# The path whose launch count each kernel's record reports.
+# The path whose launch count each kernel's record reports (the sweep's:
+# the cluster path's if it launched there, else the 4-round render's).
 RECORD_PATH = {"slab_cull": "walk", "walk": "walk", "gather_cols": "pairs",
                "scatter_cols": "geomgrad", "pair_extract": "pairs", "pair_runs": "pairs",
-               "mxu_bf": "brute"}
+               "mxu_bf": "brute", "cluster_cull": "cluster", "cluster_rounds": "cluster",
+               "cluster_sweep": "cluster", "binned_argmin": "binned"}
 # The cluster table's triangle tables that the gradient phases differentiate.
 TRI_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2")
 # The subsurface transmittance [geomgrad] gives the icosphere's material
@@ -231,6 +268,57 @@ class Recorder:
         setattr(self.module, self.name, self.real)
 
 
+class RepairStats:
+    """Keeps the ``collect_stats`` record of every call the integrator makes
+    to one intersector (``intersect_mesh_cluster`` or
+    ``intersect_mesh_binned``) while the block runs; restores it on exit."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.calls = []
+
+    def __enter__(self):
+        self.real = getattr(tint, self.name)
+
+        def wrapped(*args, **kwargs):
+            hit, stats = self.real(*args, **kwargs, collect_stats=True)
+            self.calls.append(stats)
+            return hit
+
+        setattr(tint, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(tint, self.name, self.real)
+
+    def per_bounce(self, depth: int) -> str:
+        """Flagged rays and the repair of each bounce, over the iterations."""
+        out = []
+        for b in range(depth):
+            calls = self.calls[b::depth]
+            out.append(f"bounce {b}: flagged {[c['flagged'] for c in calls]}, repair "
+                       f"{sorted(set(c['repair'] for c in calls))}")
+        return "; ".join(out)
+
+
+def check_hits(label, got, want):
+    """A kernel's (bt, btri) against its plain version's: ids on >= 99.99%
+    of rays, t within 1e-5 relative on every ray (where ids differ too: a
+    near-tie). Returns (fraction of equal ids, max |dt| where equal)."""
+    (bt_k, btri_k), (bt_p, btri_p) = got, want
+    same = btri_k == btri_p
+    frac = same.float().mean().item()
+    rel = (bt_k - bt_p).abs() / bt_p.abs().clamp_min(1e-30)
+    log(f"[kernels] {label}: {int((btri_p >= 0).sum())} of {btri_p.shape[0]} rays hit; ids "
+        f"equal on {frac:.6%}; max |dt|/t {rel.max().item():.3g} (where ids differ: "
+        f"{rel[~same].max().item() if (~same).any() else 0.0:.3g})")
+    if frac < 0.9999:
+        raise AssertionError(f"{label} ids equal on only {frac:.6%} of rays")
+    if rel.max().item() > 1e-5:
+        raise AssertionError(f"{label}: t differs by more than 1e-5 relative")
+    return frac, (bt_k - bt_p)[same].abs().max().item()
+
+
 def real_tris_per_block(cm) -> torch.Tensor:
     """[kp] real triangles in each cluster block. The build pads a leaf
     to the block size with degenerate copies (v1 = v2 = v0) that never
@@ -240,6 +328,20 @@ def real_tris_per_block(cm) -> torch.Tensor:
     pad = (t.v1 == t.v0).all(dim=1) & (t.v2 == t.v0).all(dim=1)
     real = (~pad).reshape(cm.n_real_blocks, cm.block).sum(dim=1)
     return torch.cat([real, real.new_zeros(cm.n_blocks - cm.n_real_blocks)])
+
+
+def needed_rounds(cm, sel, lb, bt, act, tile: int):
+    """The least work of a round loop (walk, rounds) on this data: a tile
+    must test every listed block whose entry bound lies below some live
+    ray's final t, for each of its live rays and each real triangle of
+    the block (past a tile's feasible count lb is BIG and no block is
+    needed). -> (needed (tile, block) rounds, needed tests)."""
+    g = bt.shape[0] // tile
+    live = act.reshape(g, tile) > 0
+    worst = torch.where(live, bt.reshape(g, tile), 0.0).amax(dim=1)
+    need = lb < worst[:, None]
+    tris_of = real_tris_per_block(cm)[sel.long()]
+    return int(need.sum()), int((need * live.sum(dim=1, keepdim=True) * tris_of).sum())
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -287,33 +389,13 @@ def phase_kernels(scene, config, device) -> dict:
     bt_k, btri_k = twalk.walk(sel, lb, nsel, r, t0, act, w, wtile, block)
     bt_p, btri_p = twalk._walk_ref(sel, lb, r, t0, act, w, wtile, block)
     sync(device)
-    same = btri_k == btri_p
-    frac = same.float().mean().item()
-    rel = ((bt_k - bt_p).abs() / bt_p.abs().clamp_min(1e-30))
-    hits = int((btri_p >= 0).sum())
-    log(f"[kernels] walk: {hits} of {rays} rays hit; ids equal on {frac:.6%}; "
-        f"max |dt|/t {rel.max().item():.3g} (where ids differ: "
-        f"{rel[~same].max().item() if (~same).any() else 0.0:.3g})")
-    if frac < 0.9999:
-        raise AssertionError(f"walk ids equal on only {frac:.6%} of rays")
-    if (~same).any() and rel[~same].max().item() > 1e-5:
-        raise AssertionError("walk: t differs by more than 1e-5 where ids differ")
-    if rel[same].max().item() > 1e-5:
-        raise AssertionError("walk: t differs by more than 1e-5 relative")
-    # The least work this data needs: a tile must test every listed block
-    # whose entry bound lies below some live ray's final t, for each of
-    # its live rays and each real triangle of the block.
+    frac, max_err = check_hits("walk", (bt_k, btri_k), (bt_p, btri_p))
     g = r.shape[0] // wtile
-    live = act.reshape(g, wtile) > 0
-    worst = torch.where(live, bt_p.reshape(g, wtile), torch.zeros_like(t0).reshape(g, wtile)).amax(dim=1)
-    need = (lb < worst[:, None]) & (torch.arange(lb.shape[1], device=lb.device)[None] < nsel)
-    needed = int(need.sum())
-    tris_of = real_tris_per_block(scene.cmesh)[sel.long().clamp(0, lb.shape[1] - 1)]
-    walk_tests = int((need * live.sum(dim=1, keepdim=True) * tris_of).sum())
+    needed, walk_tests = needed_rounds(scene.cmesh, sel, lb, bt_p, act, wtile)
     walk_ops = walk_tests * MT_OPS_PER_TEST
     walk_bytes = sum(a.numel() * 4 for a in (sel, lb, nsel, r, t0, act, w, bt_k, btri_k))
     results["walk"] = dict(
-        max_abs_err=(bt_k - bt_p)[same].abs().max().item(),
+        max_abs_err=max_err,
         ms=time_ms(lambda: twalk.walk(sel, lb, nsel, r, t0, act, w, wtile, block), 10),
         plain_ms=time_ms(lambda: twalk._walk_ref(sel, lb, r, t0, act, w, wtile, block), 3),
         library_ms=None, **bound(walk_bytes, walk_ops),
@@ -350,18 +432,24 @@ def phase_kernels(scene, config, device) -> dict:
     return results
 
 
+def bounce_args(scene, config, intersector: str, device):
+    """The arguments one iteration of ``config``'s render hands the
+    integrator's ``intersector`` at its second bounce."""
+    n = int(scene.camera.resolution[0]) * int(scene.camera.resolution[1])
+    step = make_render_block_fn(scene, config, 1, device=device)
+    with Recorder(tint, intersector, 1) as rec:
+        step(torch.zeros((n, 3), device=device), prng_key(0), 1)
+    sync(device)
+    return rec.args, rec.kwargs
+
+
 def phase_pairs(scene, device):
     """Kernels 5, 6 and 8 against their plain versions on the pair path's
     second bounce, and the pair list against the brute force on all of
     its rays. Returns (kernel results, the bounce's collect_stats)."""
     use_full_f32()
-    n = int(scene.camera.resolution[0]) * int(scene.camera.resolution[1])
-    step = make_render_block_fn(scene, RenderConfig(trace_depth=8, antialias=True, **PAIRS),
-                                1, device=device)
-    with Recorder(tint, "intersect_mesh_pairs", 1) as rp:
-        step(torch.zeros((n, 3), device=device), prng_key(0), 1)
-    sync(device)
-    args, kwargs = rp.args, rp.kwargs
+    args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **PAIRS),
+                               "intersect_mesh_pairs", device)
     with Recorder(tpairs, "extract", 0, match=lambda a, kw: a[3] == tpairs.F2) as r2, \
             Recorder(tpairs, "extract", 0, match=lambda a, kw: a[3] != tpairs.F2) as r1, \
             Recorder(tpairs, "pair_runs", 0) as rr:
@@ -441,21 +529,11 @@ def phase_pairs(scene, device):
         f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     # -- the pair list against the brute-force kernel, every ray ----------
-    origin, direction, cm = args[0], args[1], args[2]
+    # (t within 2^-12: the pair list reports t truncated by its packed key)
+    brute_check("[pairs] pair list", hit_p, args, kwargs, 2.0 ** -12)
+    origin, direction = args[0], args[1]
     t_init, active = kwargs["t_init"], kwargs["active"]
     d_live = torch.where(active[:, None], direction, 0.0)  # dead rays never hit
-    tris = cm.tris
-    hb = tmxu.intersect_brute_mxu(origin, d_live, tris.v0, tris.v1, tris.v2, t_max=t_init)
-    sync(device)
-    frac = (hit_p.tri == hb.tri).float().mean().item()
-    both = (hb.tri >= 0) & (hit_p.tri >= 0)
-    rel = ((hit_p.t - hb.t).abs() / hb.t.abs().clamp_min(1e-30))[both]
-    log(f"[pairs] pair list vs brute-force kernel on all {origin.shape[0]} rays of bounce 1 "
-        f"x {tris.v0.shape[0]} triangle slots: {int((hb.tri >= 0).sum())} hits; ids equal on "
-        f"{frac:.6%}; max |dt|/t {rel.max().item() if rel.numel() else 0.0:.3g} where both hit "
-        f"(bound 2^-12)")
-    if frac < 0.9999 or (rel.numel() and rel.max().item() > 2.0 ** -12):
-        raise AssertionError("the pair list differs from the brute force on this bounce")
 
     # -- brute force: kernel against plain on a slice; timed at full size --
     mesh = scene.mesh
@@ -502,6 +580,171 @@ def phase_pairs(scene, device):
     return results, stats
 
 
+def brute_check(label, hit, args, kwargs, rtol: float = 1e-5) -> None:
+    """An intersector's hits on every ray of one bounce against the
+    brute-force kernel's on the same rays: ids on >= 99.99% of rays, t
+    within ``rtol`` relative where both hit. ``label`` starts with the
+    phase's tag."""
+    origin, direction, cm = args[0], args[1], args[2]
+    t_init, active = kwargs["t_init"], kwargs["active"]
+    d_live = torch.where(active[:, None], direction, 0.0)  # dead rays never hit
+    tris = cm.tris
+    hb = tmxu.intersect_brute_mxu(origin, d_live, tris.v0, tris.v1, tris.v2, t_max=t_init)
+    sync(origin.device)
+    frac = (hit.tri == hb.tri).float().mean().item()
+    both = (hb.tri >= 0) & (hit.tri >= 0)
+    rel = ((hit.t - hb.t).abs() / hb.t.abs().clamp_min(1e-30))[both]
+    rel_max = rel.max().item() if rel.numel() else 0.0
+    log(f"{label} vs brute-force kernel on all {origin.shape[0]} rays of bounce 1 x "
+        f"{tris.v0.shape[0]} triangle slots: {int((hb.tri >= 0).sum())} hits; ids equal on "
+        f"{frac:.6%}; max |dt|/t {rel_max:.3g} where both hit (bound {rtol:.3g})")
+    if frac < 0.9999 or rel_max > rtol:
+        raise AssertionError(f"{label} differs from the brute force on this bounce")
+
+
+def check_cull(args) -> dict:
+    """Kernel 9 against its plain version: bit for bit."""
+    x, cull_w, blk, tile = args
+    got = tcl.cull(x, cull_w, blk, tile)
+    want = tcl._cull_ref(x, cull_w, blk, tile)
+    sync(x.device)
+    if not torch.equal(got, want):
+        raise AssertionError(f"cluster_cull differs from its plain version in "
+                             f"{int((got != want).sum())} entries")
+    k_real = int((blk[5] >= 0).sum())
+    live = int((x[:, 7] > 0).sum())
+    nbytes = (x.numel() + cull_w.numel() + blk.numel() + got.numel()) * 4
+    res = dict(max_abs_err=0.0, ms=time_ms(lambda: tcl.cull(x, cull_w, blk, tile), 20),
+               plain_ms=time_ms(lambda: tcl._cull_ref(x, cull_w, blk, tile), 3),
+               library_ms=None, **bound(nbytes, live * k_real * CULL_OPS_PER_PAIR),
+               shape=f"x [{x.shape[0]},8] ({live} live), kp {blk.shape[1]} ({k_real} real), "
+                     f"tile {tile}")
+    log(f"[kernels] cluster_cull == plain bit for bit; {res['shape']}")
+    return res
+
+
+def check_rounds(args, cm) -> dict:
+    """Kernel 10 against its plain version on the path's own inputs."""
+    sel, lb, r, t0, act, w, tile, block = args
+    got = tcl.cluster_rounds(sel, lb, r, t0, act, w, tile, block)
+    want = tcl._cluster_ref(sel, lb, r, t0, act, w, tile, block, sel.shape[1])
+    sync(r.device)
+    frac, max_err = check_hits("cluster_rounds", got, want)
+    needed, tests = needed_rounds(cm, sel, lb, want[0], act, tile)
+    listed = torch.unique(sel[lb < BIG])
+    nbytes = (sum(a.numel() for a in (sel, lb, r, t0, act, *got))
+              + listed.numel() * 16 * 4 * block) * 4
+    res = dict(max_abs_err=max_err,
+               ms=time_ms(lambda: tcl.cluster_rounds(sel, lb, r, t0, act, w, tile, block), 10),
+               plain_ms=time_ms(lambda: tcl._cluster_ref(sel, lb, r, t0, act, w, tile, block,
+                                                         sel.shape[1]), 1),
+               library_ms=None, **bound(nbytes, tests * MT_OPS_PER_TEST),
+               shape=f"{sel.shape[0]} tiles of {tile} rays, {sel.shape[1]} rounds, {needed} "
+                     f"needed (tile, block) rounds of {block} slots, {tests} needed (live ray, "
+                     f"real triangle) tests, feasible lists of mean "
+                     f"{(lb < BIG).sum(dim=1).float().mean().item():.1f}", ids_equal=frac)
+    log(f"[kernels] cluster_rounds: {res['shape']}")
+    return res
+
+
+def check_sweep(args, cm) -> dict:
+    """Kernel 11 against its plain version on a BRUTE_SLICE-ray slice of
+    its inputs (whole tiles spread over the tiles with live rays); both
+    timed at full size, the plain version in one call."""
+    r, t0, w, tile, block, kreal = args
+    n = r.shape[0]
+    live = (r[:, 3:6] != 0).any(dim=1)  # dead lanes have d = 0
+    live_tiles = torch.nonzero(live.reshape(n // tile, tile).any(dim=1))[:, 0]
+    pick = live_tiles[torch.linspace(0, live_tiles.numel() - 1, max(1, BRUTE_SLICE // tile),
+                                     device=r.device).long().unique()]
+    idx = (pick[:, None] * tile + torch.arange(tile, device=r.device)).reshape(-1)
+    rs, ts = r[idx], t0[idx]
+    frac, max_err = check_hits(f"cluster_sweep on {idx.numel()} rays",
+                               tcl.sweep(rs, ts, w, tile, block, kreal),
+                               tcl._sweep_ref(rs, ts, w, tile, block, kreal))
+    t = time.perf_counter()
+    tcl._sweep_ref(r, t0, w, tile, block, kreal)
+    sync(r.device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    n_live = int(live.sum())
+    tris = int(real_tris_per_block(cm).sum())
+    nbytes = (r.numel() + 3 * n + kreal * 16 * 4 * block) * 4
+    res = dict(max_abs_err=max_err, ms=time_ms(lambda: tcl.sweep(r, t0, w, tile, block, kreal), 3),
+               plain_ms=plain_ms, library_ms=None,
+               **bound(nbytes, n_live * tris * MT_OPS_PER_TEST),
+               shape=f"{n} rays ({n_live} live) x {kreal} blocks of {block} slots ({tris} real "
+                     f"triangles), tiles of {tile}", ids_equal=frac)
+    log(f"[kernels] cluster_sweep: {res['shape']}; kernel {res['ms']:.2f} ms, plain "
+        f"{plain_ms:.2f} ms (one call)")
+    return res
+
+
+def check_argmin(args) -> dict:
+    """Kernel 12 against its plain version: bit for bit."""
+    x, cull_w, blk = args
+    got = tbinned.argmin_bins(x, cull_w, blk)
+    want = tbinned._argmin_ref(x, cull_w, blk)
+    sync(x.device)
+    if not torch.equal(got, want):
+        raise AssertionError(f"binned_argmin differs from its plain version on "
+                             f"{int((got != want).sum())} rays")
+    kp = blk.shape[1]
+    k_real = int((blk[5] >= 0).sum())
+    live = int((x[:, 7] > 0).sum())
+    nbytes = (x.numel() + cull_w.numel() + blk.numel() + got.numel()) * 4
+    res = dict(max_abs_err=0.0, ms=time_ms(lambda: tbinned.argmin_bins(x, cull_w, blk), 20),
+               plain_ms=time_ms(lambda: tbinned._argmin_ref(x, cull_w, blk), 3),
+               library_ms=None, **bound(nbytes, live * k_real * CULL_OPS_PER_PAIR),
+               shape=f"x [{x.shape[0]},8] ({live} live), kp {kp} ({k_real} real); "
+                     f"{int((want < kp).sum())} rays with a feasible block")
+    log(f"[kernels] binned_argmin == plain bit for bit; {res['shape']}")
+    return res
+
+
+def phase_cluster(scene, device) -> dict:
+    """Kernels 9-12 against their plain versions on the inputs the
+    cluster-rounds and binned paths hand them at their second bounce, and
+    both intersectors against the brute-force kernel on every ray of it."""
+    use_full_f32()
+    results = {}
+    args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **CLUSTER),
+                               "intersect_mesh_cluster", device)
+    cm = args[2]
+    with Recorder(tcl, "cull", 0) as rc, Recorder(tcl, "cluster_rounds", 0) as rr, \
+            Recorder(tcl, "sweep", 0) as rs:
+        hit, stats = tcl.intersect_mesh_cluster(*args, **kwargs, collect_stats=True)
+    log(f"[cluster] cluster rounds (64), bounce 1: {stats}")
+    brute_check("[cluster] cluster rounds (64)", hit, args, kwargs)
+    sweep_args = rs.args
+    if sweep_args is None:  # no ray flagged: the sweep's inputs from 4 rounds
+        cfg4 = RenderConfig(trace_depth=8, antialias=True, cluster_rounds=4, **CLUSTER)
+        with Recorder(tcl, "sweep", 0) as rs4:
+            hit, stats = tcl.intersect_mesh_cluster(args[0], args[1], cm, cfg4, **kwargs,
+                                                    collect_stats=True)
+        log(f"[cluster] cluster rounds (4), bounce 1: {stats}")
+        brute_check("[cluster] cluster rounds (4)", hit, args, kwargs)
+        sweep_args = rs4.args
+    results["cluster_cull"] = check_cull(rc.args)
+    results["cluster_rounds"] = check_rounds(rr.args, cm)
+    results["cluster_sweep"] = check_sweep(sweep_args, cm)
+
+    args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **BINNED),
+                               "intersect_mesh_binned", device)
+    with Recorder(tbinned, "argmin_bins", 0) as ra:
+        hit, stats = tbinned.intersect_mesh_binned(*args, **kwargs, collect_stats=True)
+    log(f"[cluster] binned (32 rounds), bounce 1: {stats}")
+    brute_check("[cluster] binned (32)", hit, args, kwargs)
+    results["binned_argmin"] = check_argmin(ra.args)
+    for name in ("cluster_cull", "cluster_rounds", "cluster_sweep", "binned_argmin"):
+        res = results[name]
+        log(f"[kernels] {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    log("[kernels] library_ms is null for cluster_cull, cluster_rounds, cluster_sweep and "
+        "binned_argmin: no one PyTorch call computes a tile-min or first-argmin of a masked "
+        "sphere entry bound, or a masked first-minimum over each tile's own blocks")
+    return results
+
+
 def phase_goldens(device):
     """The JAX package's committed goldens, rendered by the port."""
     scene = with_resolution(load_scene(CORNELL, device=device), 64, 64)
@@ -515,9 +758,9 @@ def phase_goldens(device):
 
     scene = mesh_scene(4, 2.0, 48, device)
     golden = np.load(os.path.join(GOLDENS, "mesh_pairs_48.npy"))
-    img = render(scene, RenderConfig(trace_depth=4, cluster_tile=256, **PAIRS),
-                 spp=8, seed=0, device=device)
-    d = np.abs(img.cpu().numpy() - golden)
+    pair_img = render(scene, RenderConfig(trace_depth=4, cluster_tile=256, **PAIRS),
+                      spp=8, seed=0, device=device).cpu().numpy()
+    d = np.abs(pair_img - golden)
     off = np.flatnonzero((d > 2e-3).any(axis=-1))
     log(f"[golden] mesh_pairs_48 (its own pair config): max |d| {d.max():.3g}, mean |d| "
         f"{d.mean():.3g}; {off.size} of {d.shape[0] * d.shape[1]} pixels beyond atol 2e-3 "
@@ -525,20 +768,30 @@ def phase_goldens(device):
         f"mean 2e-4: the golden's jit fused multiply-adds, which branches those two)")
     if not set(off.tolist()) <= set(JIT_BRANCHED_PIXELS) or d.mean() > 2e-4:
         raise AssertionError("mesh_pairs_48 differs from its golden beyond its bound")
-    img = render(scene, RenderConfig(trace_depth=4, cluster_tile=256, **WALK),
-                 spp=8, seed=0, device=device)
-    d = np.abs(img.cpu().numpy() - golden)
-    log(f"[golden] mesh_pairs_48 (walk config): max |d| {d.max():.3g}, "
-        f"mean |d| {d.mean():.3g} (bound: mean 1e-2)")
-    if d.mean() > 1e-2:
-        raise AssertionError("mesh_pairs_48 (walk) differs from its golden beyond mean 1e-2")
+    # the other exact intersectors: within the golden tests' cross-mode
+    # bound (the cluster configs of tests/test_cluster.py:206-207 and
+    # tests/test_golden.py:78-81)
+    for label, kw in (("walk", WALK), ("cluster rounds", dict(cluster_rounds=6, **CLUSTER)),
+                      ("binned", dict(binned_rounds=8, **BINNED))):
+        img = render(scene, RenderConfig(trace_depth=4, cluster_tile=256, **kw),
+                     spp=8, seed=0, device=device).cpu().numpy()
+        d = np.abs(img - golden)
+        log(f"[golden] mesh_pairs_48 ({label} config): max |d| {d.max():.3g}, mean |d| "
+            f"{d.mean():.3g}, mean |d| against the port's pair render "
+            f"{np.abs(img - pair_img).mean():.3g} (bound: mean 1e-2)")
+        if d.mean() > 1e-2:
+            raise AssertionError(f"mesh_pairs_48 ({label}) differs from its golden beyond "
+                                 f"mean 1e-2")
 
 
 def phase_main_path(name, scene, config, device, expect, block: int = 2,
-                    timed_calls: int = 3, profile: bool = True) -> dict:
+                    timed_calls: int = 3, profile: bool = True, repair: str = None) -> dict:
     """One render path at full size; every launch count is zeroed just
     before it and read just after. ``expect`` names the kernels that
-    must launch on it."""
+    must launch on it; ``repair`` names the integrator's intersector whose
+    flagged rays and repair of every bounce the path reports. A path whose
+    warm-up takes more than SLOW_ITERATION_MS an iteration is timed as one
+    call of one iteration."""
     res = int(scene.camera.resolution[0])
     n = res * res
     step = make_render_block_fn(scene, config, block, device=device)
@@ -547,11 +800,19 @@ def phase_main_path(name, scene, config, device, expect, block: int = 2,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     # index -1 records nothing: it only counts the pair path's set-size reads
-    with Recorder(tpairs, "_compact_all", -1) as reads:
+    with Recorder(tpairs, "_compact_all", -1) as reads, \
+            (RepairStats(repair) if repair else contextlib.nullcontext()) as stats:
+        t = time.perf_counter()
         film = step(torch.zeros((n, 3), device=device), key, 1)  # warm-up
         sync(device)
-        per_iter = []
+        warm_ms = (time.perf_counter() - t) * 1e3 / block
         it = 1 + block
+        if warm_ms > SLOW_ITERATION_MS:
+            log(f"[main:{name}] warm-up {warm_ms:.1f} ms/iteration: timed as one call of one "
+                f"iteration")
+            block, timed_calls = 1, 1
+            step = make_render_block_fn(scene, config, block, device=device)
+        per_iter = []
         for _ in range(timed_calls):
             t = time.perf_counter()
             film = step(film, key, it)
@@ -563,7 +824,7 @@ def phase_main_path(name, scene, config, device, expect, block: int = 2,
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     ms = statistics.median(per_iter)
     depth = config.effective_depth
-    iters = (1 + timed_calls) * block
+    iters = it - 1
     log(f"[main:{name}] {res}x{res}, depth {depth}, {int(scene.mesh.v0.shape[0])} triangles: "
         f"{ms:.2f} ms/iteration (median of {timed_calls} calls x {block} iterations: "
         f"{', '.join(f'{v:.2f}' for v in per_iter)}), "
@@ -574,6 +835,10 @@ def phase_main_path(name, scene, config, device, expect, block: int = 2,
         # reads whether any ray is left for pass 3
         log(f"[main:{name}] host reads per iteration: "
             f"{(reads.calls + depth * iters) / iters:.1f}")
+    if stats is not None:
+        # each call reads its flagged-ray count on the host
+        log(f"[main:{name}] host reads per iteration: {len(stats.calls) / iters:.1f}")
+        log(f"[main:{name}] over {iters} iterations, {stats.per_bounce(depth)}")
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         raise AssertionError(f"{missing} not launched on the {name} path: {launches}")
@@ -865,33 +1130,63 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     device = torch.device("cuda", torch.cuda.current_device())
+    start = time.perf_counter()
+
+    def phase_done(name):
+        log(f"[time] {name} done at {time.perf_counter() - start:.1f} s")
+
     scene = mesh_scene(6, 2.5, 800, device)
     walk_config = RenderConfig(trace_depth=8, antialias=True, **WALK)
     results = phase_kernels(scene, walk_config, device)
+    phase_done("kernels")
     pair_results, _ = phase_pairs(scene, device)
     results.update(pair_results)
+    phase_done("pairs")
+    results.update(phase_cluster(scene, device))
+    phase_done("cluster")
     phase_goldens(device)
+    phase_done("goldens")
     paths = {
         "pairs": phase_main_path("pairs", scene, RenderConfig(trace_depth=8, antialias=True),
                                  device, ("pair_extract", "pair_runs", "gather_cols")),
         "walk": phase_main_path("walk", scene, walk_config, device,
                                 ("slab_cull", "walk", "gather_cols")),
+        "cluster": phase_main_path("cluster", scene,
+                                   RenderConfig(trace_depth=8, antialias=True, **CLUSTER),
+                                   device, ("cluster_cull", "cluster_rounds", "gather_cols"),
+                                   repair="intersect_mesh_cluster"),
+        "binned": phase_main_path("binned", scene,
+                                  RenderConfig(trace_depth=8, antialias=True, **BINNED),
+                                  device, ("binned_argmin", "cluster_cull", "cluster_rounds",
+                                           "gather_cols"), repair="intersect_mesh_binned"),
+        # 4 rounds flag rays on every bounce, so the sweep launches on a
+        # render whether or not the default 64 ever flag
+        "cluster_r4": phase_main_path("cluster_r4", scene,
+                                      RenderConfig(trace_depth=2, antialias=True,
+                                                   cluster_rounds=4, **CLUSTER),
+                                      device, ("cluster_sweep",), block=1, timed_calls=1,
+                                      profile=False, repair="intersect_mesh_cluster"),
         "brute": phase_main_path("brute", scene,
                                  RenderConfig(trace_depth=2, antialias=True, enable_kd=False,
                                               cluster_auto=False),
                                  device, ("mxu_bf", "gather_cols"), block=1,
                                  timed_calls=1, profile=False),
     }
+    phase_done("main paths")
+    record_path = dict(RECORD_PATH)
+    if not paths["cluster"]["cluster_sweep"]:
+        record_path["cluster_sweep"] = "cluster_r4"
     paths["train"] = phase_train(scene, device)
     results["scatter_cols"], paths["geomgrad"] = phase_geomgrad(scene, device)
     phase_gradcheck(device)
+    phase_done("gradients")
     unused = [k for k, _, _, _ in KERNELS if not any(p[k] for p in paths.values())]
     if unused:
         raise AssertionError(f"kernels launched on no path: {unused}")
 
     record = {"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=paths[RECORD_PATH[name]][name],
+             launches=paths[record_path[name]][name],
              **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")})
         for name, _, source, replaces in KERNELS

@@ -4,9 +4,11 @@ Same field names and defaults as ``kdtreepathtraceroptimization_tpu.config``
 so one config describes a render in either package. This port implements
 the pair-list intersector (``cluster_pairs=True``, the default for a mesh
 with a cluster table), the exact cluster walk (``cluster_walk=True,
-cluster_pairs=False``), both brute forces (``enable_kd=False``) and the
-analytic-only path; the integrator raises ``NotImplementedError`` for
-fields that select anything else (see ``render/integrator.py``). The field comments name the reference
+cluster_pairs=False``), the binned and cluster-rounds intersectors
+(``cluster_binned=True``, or neither, with ``cluster_pairs=False``), both
+brute forces (``enable_kd=False``) and the analytic-only path; the
+integrator raises ``NotImplementedError`` for fields that select anything
+else (see ``render/integrator.py``). The field comments name the reference
 renderer's toggles (src/main.cpp:35-60).
 """
 
@@ -71,7 +73,8 @@ class RenderConfig:
     pair_bdiag_tile: int = 1024
     pair_narrow_div: int = 8
     # Shard-local sorts across chips; the port runs on one device and
-    # raises for any value but 1 (``ops/walk.py``, ``ops/pairs.py``).
+    # raises for any value but 1 (``ops/walk.py``, ``ops/pairs.py``,
+    # ``ops/binned.py``).
     binned_shards: int = 1
     scan_bounces: bool = True
 

@@ -1,29 +1,69 @@
-"""Cluster table: spatial blocks of triangles with their MT weights.
+"""Cluster table and the cluster-rounds intersector.
 
-The host half of the JAX package's ``ops/cluster.py``, in numpy so its
-arrays equal the JAX build bit for bit, plus the plain round loop
-``_cluster_ref`` that is the walk kernel's plain version
-(``ops/walk.py``).
+The JAX package's ``ops/cluster.py`` in PyTorch, with its three TPU kernels
+ported to CUDA (``csrc/cluster_cull.cu``, ``csrc/cluster_rounds.cu``). The
+host build is numpy, so its arrays equal the JAX build bit for bit: it
+splits the triangles into median-split KD leaves of ``block`` triangles
+(padding leaves with degenerate copies that never win), keeps each block's
+Moller-Trumbore weights ``[16, 4B]`` (``ops/mxu_bf``), bounding sphere and
+AABB, and pads the block axis to a multiple of 128 with never-feasible
+sentinel blocks. Hit triangle ids index ``ClusterMesh.tris`` directly.
 
-The build splits the triangles into median-split KD leaves of ``block``
-triangles (padding leaves with degenerate copies that never win), keeps
-each block's Moller-Trumbore weights ``[16, 4B]`` (``ops/mxu_bf``),
-bounding sphere and AABB, and pads the block axis to a multiple of 128
-with never-feasible sentinel blocks. Hit triangle ids index
-``ClusterMesh.tris`` directly.
+The intersector (``intersect_mesh_cluster``), per call:
+
+  1. coherence sort (``cluster_sort``): direction octant + origin morton,
+     stable; dead rays and rays that miss the mesh's root box go last;
+  2. sphere cull (kernel 9): [tiles, K] tile-min conservative entry bounds
+     into every block's bounding sphere;
+  3. select: each tile's first R = ``cluster_rounds`` feasible blocks in
+     entry order, and the entry bound of the first block left out;
+  4. rounds (kernel 10): per tile, the R blocks in order with a running
+     nearest hit; a round runs only while some live ray can still beat
+     its entry bound;
+  5. repair (kernel 11): a ray whose best t exceeds its tile's first
+     unselected entry bound is flagged; if any ray is, every tile sweeps
+     every real block, bounded by its best t. The flag count is one host
+     read;
+  6. un-sort the results.
+
+The result equals brute force over the mesh. The plain round loop
+``_cluster_ref`` is also the walk kernel's plain version (``ops/walk.py``).
+Each kernel's wrapper runs the plain PyTorch version on CPU tensors and
+the CUDA kernel on CUDA tensors; there is no other fallback.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf
-from kdtreepathtraceroptimization_tpu_torch.ops.mesh import pack_tris
+from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
+from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG, intersect_aabb
+from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit, pack_tris
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA
+from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, CudaKernel, check_tensor
 from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, to_tensor
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+CULL = CudaKernel("cluster_cull", "cluster_cull", [_P, _P, _P, _P, _I, _I, _I])
+ROUNDS = CudaKernel("cluster_rounds", "cluster_rounds",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
+SWEEP = CudaKernel("cluster_rounds", "cluster_sweep", [_P, _P, _P, _P, _P, _I, _I, _I, _I])
+
+# Shared memory the sphere cull stages per ray of its tile (bytes): o, d,
+# t0, act, o.d and |o|^2.
+_CULL_BYTES_PER_RAY = 40
+# Shared memory one staged weight block of B triangles takes in the rounds
+# and sweep kernels (bytes per triangle: csrc/mt_block.cuh).
+_STAGED_BYTES_PER_TRI = 160
+# Elements of [rays, blocks] entries the plain cull makes at once.
+_REF_ENTRY_ELEMS = 1 << 26
 
 
 class ClusterMesh(NamedTuple):
@@ -220,52 +260,341 @@ def build_cluster_mesh(mesh: MeshSoA, block: int = 256, method: str = "kd",
     )
 
 
-# Largest [tiles, tile, 4B] product the plain round loop materializes at
-# once (elements); bounds its memory at full size.
+# Largest [tiles, tile, 4B] product the plain round loop makes at once
+# (elements); bounds its memory at full size.
 _REF_CHUNK_ELEMS = 1 << 28
 
 
 def _cluster_ref(sel, lb, r, t0, act, w, tile: int, block: int,
                  rounds: int):
-    """Plain round loop (the JAX ``_cluster_ref``): for each tile, test the
-    blocks ``sel[:, :rounds]`` in order with one batched product each,
+    """Plain round loop: tile g tests the blocks ``sel[g, :rounds]`` in
+    order, one batched product per round over the tiles that run it,
     keeping the running min (first argmin within a block, strict ``<``
     across rounds).
 
-    Rounds at or past a tile's feasible count re-test its repeated last
-    block, which cannot change the running min; so each chunk of tiles
-    stops at the largest count ``lb`` shows among them (at least one
-    round). ``lb=None`` walks all ``rounds``. Tiles are processed in
-    chunks so the product never exceeds ``_REF_CHUNK_ELEMS`` elements.
+    With ``lb``, round rr runs for tile g only while some live ray (act >
+    0) of the tile has a best t above lb[g, rr], as the kernels decide
+    (the JAX ``_cluster_ref`` runs every round: a skipped round cannot
+    improve the tile, as blocks come in entry order). ``lb=None`` runs
+    every round for every tile (the sweep). The product never exceeds
+    ``_REF_CHUNK_ELEMS`` elements at once.
     """
     n = r.shape[0]
     g = n // tile
     rt = r.reshape(g, tile, 16)
-    t0 = t0.reshape(g, tile)
-    bt_out = []
-    btri_out = []
+    bt = t0.reshape(g, tile).clone()
+    btri = torch.full_like(bt, -1, dtype=torch.int32)
+    every = torch.arange(g, device=r.device)
+    live_rays = None if lb is None else act.reshape(g, tile) > 0
     chunk = max(1, _REF_CHUNK_ELEMS // (tile * 4 * block))
-    for g0 in range(0, g, chunk):
-        g1 = min(g, g0 + chunk)
-        sel_c = sel[g0:g1]
-        n_rounds = rounds
+    for rr in range(rounds):
+        tiles = every
         if lb is not None:
-            live = int((lb[g0:g1, :rounds] < mxu_bf.BIG).sum(dim=1).max())
-            n_rounds = max(1, live)
-        bt = t0[g0:g1].clone()
-        btri = torch.full_like(bt, -1, dtype=torch.int32)
-        for rr in range(n_rounds):
-            ks = sel_c[:, rr].long()
-            prod = torch.bmm(rt[g0:g1], w[ks])  # [G, tile, 4B]
+            tiles = every[(live_rays & (bt > lb[:, rr:rr + 1])).any(dim=1)]
+        for c0 in range(0, tiles.shape[0], chunk):
+            ti = tiles[c0:c0 + chunk]
+            ks = sel[ti, rr].long()
+            cur = bt[ti]
+            prod = torch.bmm(rt[ti], w[ks])  # [tiles, tile, 4B]
             t = mxu_bf._epilogue(
-                prod.reshape(-1, 4 * block), block, bt.reshape(-1)
-            ).reshape(g1 - g0, tile, block)
+                prod.reshape(-1, 4 * block), block, cur.reshape(-1)
+            ).reshape(-1, tile, block)
             loc = torch.argmin(t, dim=2)
             lt = torch.gather(t, 2, loc[..., None])[..., 0]
-            better = lt < bt
-            tri_idx = (sel_c[:, rr][:, None] * block + loc).to(torch.int32)
-            bt = torch.where(better, lt, bt)
-            btri = torch.where(better, tri_idx, btri)
-        bt_out.append(bt)
-        btri_out.append(btri)
-    return torch.cat(bt_out).reshape(n), torch.cat(btri_out).reshape(n)
+            better = lt < cur
+            tri_idx = (ks[:, None] * block + loc).to(torch.int32)
+            bt[ti] = torch.where(better, lt, cur)
+            btri[ti] = torch.where(better, tri_idx, btri[ti])
+    return bt.reshape(n), btri.reshape(n)
+
+
+# ---------------------------------------------------------------------------
+# sphere cull (kernel 9)
+# ---------------------------------------------------------------------------
+
+
+def _entry_math(o, d, t0, act, radius, cc, r2, p1, p2):
+    """Conservative entry bound per (ray, block) pair, BIG where the pair is
+    infeasible (sphere missed or entirely behind, beyond the ray's bound,
+    dead lane, sentinel block).
+
+    entry = max(t_ca - radius, 0), t_ca = d.c - o.d the ray parameter of
+    the closest approach to the block's centre; ``p1`` = d.c and ``p2`` =
+    o.c. Every product is rounded on its own and three-term dot products
+    are summed left to right, as the CUDA kernels do."""
+    od = o[:, 0:1] * d[:, 0:1] + o[:, 1:2] * d[:, 1:2] + o[:, 2:3] * d[:, 2:3]
+    oo = o[:, 0:1] * o[:, 0:1] + o[:, 1:2] * o[:, 1:2] + o[:, 2:3] * o[:, 2:3]
+    t_ca = p1 - od
+    dline2 = cc - 2.0 * p2 + oo - t_ca * t_ca
+    entry = torch.clamp_min(t_ca - radius, 0.0)
+    feasible = (
+        (dline2 <= r2)
+        & (t_ca + radius > 0.0)
+        & (entry < t0)
+        & act
+        & (r2 >= 0.0)
+    )
+    return torch.where(feasible, entry, BIG)
+
+
+def _entries(x, cull_w, blk):
+    """[n, 8] ray records (o d t0 act) -> [n, K] entry bounds.
+
+    The TPU takes (d.c | o.c) as ``x @ cull_w``, whose other five terms
+    are exactly zero; here each half is its three non-zero terms."""
+    kp = blk.shape[1]
+    p1 = (x[:, 3:4] * cull_w[3:4, :kp] + x[:, 4:5] * cull_w[4:5, :kp]
+          + x[:, 5:6] * cull_w[5:6, :kp])
+    p2 = (x[:, 0:1] * cull_w[0:1, kp:] + x[:, 1:2] * cull_w[1:2, kp:]
+          + x[:, 2:3] * cull_w[2:3, kp:])
+    return _entry_math(x[:, 0:3], x[:, 3:6], x[:, 6:7], x[:, 7:8] > 0.0,
+                       blk[3:4, :], blk[4:5, :], blk[5:6, :], p1, p2)
+
+
+def _cull_ref(x, cull_w, blk, tile: int):
+    """Plain sphere cull: [n/tile, K] tile-min entries, a chunk of tiles
+    at a time."""
+    n = x.shape[0]
+    kp = blk.shape[1]
+    rows = max(tile, _REF_ENTRY_ELEMS // kp // tile * tile)
+    out = [_entries(x[i:i + rows], cull_w, blk).reshape(-1, tile, kp).amin(dim=1)
+           for i in range(0, n, rows)]
+    return torch.cat(out) if out else x.new_empty((0, kp))
+
+
+def cull(x, cull_w, blk, tile: int):
+    """[n/tile, K] tile-min conservative bounding-sphere entry bounds
+    (kernel 9) of the [n, 8] ray records ``x`` (o d t0 act)."""
+    if x.device.type == "cpu":
+        return _cull_ref(x, cull_w, blk, tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"cull runs on CUDA or CPU tensors, not {x.device}")
+    device = x.device
+    n = x.shape[0]
+    kp = blk.shape[1]
+    if tile <= 0 or n % tile or tile * _CULL_BYTES_PER_RAY > MAX_SMEM:
+        raise ValueError(f"cull: bad tile {tile} for {n} rays")
+    check_tensor(x, "x", torch.float32, (n, 8), device)
+    check_tensor(cull_w, "cull_w", torch.float32, (8, 2 * kp), device)
+    check_tensor(blk, "blk", torch.float32, (8, kp), device)
+    out = torch.empty((n // tile, kp), dtype=torch.float32, device=device)
+    if n:
+        CULL.launch(device, x.data_ptr(), cull_w.data_ptr(), blk.data_ptr(),
+                    out.data_ptr(), n, kp, tile)
+    return out
+
+
+def _select(tile_entry, rounds: int):
+    """Entry-ordered per-tile block lists, padded by repetition.
+
+    -> (sel [G, R] i32, lb [G, R] f32, lb_over [G] f32), R = min(rounds,
+    K). Rounds past a tile's feasible count repeat its last feasible
+    block id with lb = BIG, so they never run. ``lb_over`` is the entry
+    bound of the first feasible block left out (BIG when none was): the
+    exactness flag's threshold. The sort is stable, as ``jnp.argsort``."""
+    g, kp = tile_entry.shape
+    rounds = min(rounds, kp)
+    sorted_e, order = torch.sort(tile_entry, dim=1, stable=True)
+    count = (sorted_e < BIG).sum(dim=1).to(torch.int32)
+    sel = order[:, :rounds].to(torch.int32)
+    lb = sorted_e[:, :rounds]
+    jj = torch.arange(rounds, dtype=torch.int32, device=tile_entry.device)[None, :]
+    last = torch.clamp(count - 1, 0, rounds - 1)[:, None].long()
+    last_sel = torch.gather(sel, 1, last)
+    live = jj < count[:, None]
+    sel = torch.where(live, sel, last_sel)
+    lb = torch.where(live, lb, BIG)
+    if rounds < kp:
+        lb_over = torch.where(count > rounds, sorted_e[:, rounds], BIG)
+    else:
+        lb_over = torch.full((g,), BIG, dtype=torch.float32, device=tile_entry.device)
+    return sel, lb, lb_over
+
+
+# ---------------------------------------------------------------------------
+# rounds (kernel 10) and the repair sweep (kernel 11)
+# ---------------------------------------------------------------------------
+
+
+def _check_round_args(kernel, r, t0, w, tile: int, block: int):
+    """Shared checks of the rounds and sweep wrappers."""
+    device = r.device
+    n = r.shape[0]
+    kp = w.shape[0]
+    rpt = kernel.call_int("cluster_rays_per_thread")
+    if (tile <= 0 or n % tile or tile % rpt or tile // rpt > 1024
+            or block * _STAGED_BYTES_PER_TRI > MAX_SMEM):
+        raise ValueError(f"{kernel.symbol}: bad tile {tile} / block {block} for {n} rays")
+    check_tensor(r, "r", torch.float32, (n, 16), device)
+    check_tensor(t0, "t0", torch.float32, (n,), device)
+    check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
+
+
+def cluster_rounds(sel, lb, r, t0, act, w, tile: int, block: int):
+    """Per-tile budgeted rounds (kernel 10) -> (bt [n], btri [n]): each
+    ray's nearest t below its t0 over the blocks ``sel`` lists for its
+    tile, and that triangle's id (-1 = none). Round rr of tile g runs only
+    while some live ray's best t exceeds lb[g, rr]."""
+    if r.device.type == "cpu":
+        return _cluster_ref(sel, lb, r, t0, act, w, tile, block, sel.shape[1])
+    if r.device.type != "cuda":
+        raise ValueError(f"cluster_rounds runs on CUDA or CPU tensors, not {r.device}")
+    device = r.device
+    _check_round_args(ROUNDS, r, t0, w, tile, block)
+    n = r.shape[0]
+    rounds = sel.shape[1]
+    check_tensor(sel, "sel", torch.int32, (n // tile, rounds), device)
+    check_tensor(lb, "lb", torch.float32, (n // tile, rounds), device)
+    check_tensor(act, "act", torch.float32, (n,), device)
+    bt = torch.empty((n,), dtype=torch.float32, device=device)
+    btri = torch.empty((n,), dtype=torch.int32, device=device)
+    if n and rounds:
+        ROUNDS.launch(device, sel.data_ptr(), lb.data_ptr(), r.data_ptr(), t0.data_ptr(),
+                      act.data_ptr(), w.data_ptr(), bt.data_ptr(), btri.data_ptr(),
+                      n, rounds, tile, block)
+    elif n:
+        bt.copy_(t0)
+        btri.fill_(-1)
+    return bt, btri
+
+
+def _sweep_ref(r, t0, w, tile: int, block: int, kreal: int):
+    """Plain sweep: the round loop over blocks 0 .. kreal-1, no bound."""
+    g = r.shape[0] // tile
+    all_sel = torch.arange(kreal, dtype=torch.int32, device=r.device).expand(g, kreal)
+    return _cluster_ref(all_sel, None, r, t0, None, w, tile, block, kreal)
+
+
+def sweep(r, t0, w, tile: int, block: int, kreal: int):
+    """Exactness repair (kernel 11) -> (bt [n], btri [n]): blocks 0 ..
+    kreal-1 for every tile, bounded by t0; no order, no act mask (dead
+    lanes have d = 0 and never hit). The TPU kernel also streams the
+    lane-padding blocks past ``kreal``, whose weights are all zero and
+    never hit."""
+    if r.device.type == "cpu":
+        return _sweep_ref(r, t0, w, tile, block, kreal)
+    if r.device.type != "cuda":
+        raise ValueError(f"sweep runs on CUDA or CPU tensors, not {r.device}")
+    device = r.device
+    _check_round_args(SWEEP, r, t0, w, tile, block)
+    n = r.shape[0]
+    if not 0 <= kreal <= w.shape[0]:
+        raise ValueError(f"sweep: {kreal} real blocks of {w.shape[0]}")
+    bt = torch.empty((n,), dtype=torch.float32, device=device)
+    btri = torch.empty((n,), dtype=torch.int32, device=device)
+    if n:
+        SWEEP.launch(device, r.data_ptr(), t0.data_ptr(), w.data_ptr(), bt.data_ptr(),
+                     btri.data_ptr(), n, kreal, tile, block)
+    return bt, btri
+
+
+def _repair_merge(bt, btri, bt2, btri2):
+    """Keep a repair pass's result where it found a hit (it is bounded by
+    bt, so any hit it finds is nearer)."""
+    keep = btri2 >= 0
+    return torch.where(keep, bt2, bt), torch.where(keep, btri2, btri)
+
+
+# ---------------------------------------------------------------------------
+# public entry
+# ---------------------------------------------------------------------------
+
+
+def _coherence_key(origin, direction, active, root_min, root_max):
+    """Sort key (the JAX package's ``ops/traverse._coherence_key``), most
+    significant first: [inactive or missing the root box] [direction
+    octant] [4-bit-per-axis origin morton]."""
+    hit_root, _ = intersect_aabb(origin, direction, root_min, root_max)
+    octant = (
+        (direction[:, 0] >= 0).to(torch.int32)
+        + 2 * (direction[:, 1] >= 0).to(torch.int32)
+        + 4 * (direction[:, 2] >= 0).to(torch.int32)
+    )
+    span = torch.clamp_min(root_max - root_min, 1e-6)
+    q = torch.clamp(((origin - root_min) / span) * 15.0, 0.0, 15.0).to(torch.int32)
+    morton = torch.zeros_like(octant)
+    for b in range(4):
+        for a in range(3):
+            morton = morton | (((q[:, a] >> b) & 1) << (3 * b + a))
+    key = (octant << 12) | morton
+    return torch.where(active & hit_root, key, 1 << 20)
+
+
+def _pad_rays(origin, direction, cm: ClusterMesh, tile: int, t_init, active):
+    """Centre the rays on the table, default t0 (BIG) and act (all live),
+    and pad to a multiple of ``tile`` with dead rays (t0 = 0)."""
+    n = origin.shape[0]
+    device = origin.device
+    origin = origin.to(torch.float32) - cm.center_shift
+    direction = direction.to(torch.float32)
+    t0 = (torch.full((n,), BIG, dtype=torch.float32, device=device)
+          if t_init is None else t_init)
+    act = (torch.ones((n,), dtype=torch.bool, device=device)
+           if active is None else active)
+    pad = (-n) % tile
+    if pad:
+        z3 = torch.zeros((pad, 3), dtype=torch.float32, device=device)
+        origin = torch.cat([origin, z3])
+        direction = torch.cat([direction, z3])
+        t0 = torch.cat([t0, torch.zeros((pad,), dtype=torch.float32, device=device)])
+        act = torch.cat([act, torch.zeros((pad,), dtype=torch.bool, device=device)])
+    return origin, direction, t0, act
+
+
+def _ray_rows(x):
+    """[n, 16] Moller-Trumbore feature rows [o, d, o x d, 1, 0 x 6] of the
+    [n, 8] ray records ``x``."""
+    r = mxu_bf.ray_features(x[:, 0:3], x[:, 3:6])
+    return torch.cat([r, r.new_zeros((x.shape[0], 6))], dim=1)
+
+
+def intersect_mesh_cluster(origin, direction, cm: ClusterMesh, config,
+                           t_init=None, active=None, collect_stats: bool = False):
+    """Nearest hit over the cluster mesh; exact (brute-equal) results.
+
+    ``t_init`` bounds the search (analytic geoms first); ``active`` lanes
+    cull nothing and can never flag. With ``collect_stats`` the call also
+    returns how many rays flagged and whether the sweep ran.
+    """
+    origin = vm.as_rows(origin)
+    direction = vm.as_rows(direction)
+    n = origin.shape[0]
+    tile = config.cluster_tile
+    origin, direction, t0, act = _pad_rays(origin, direction, cm, tile, t_init, active)
+
+    perm = None
+    if config.cluster_sort:
+        key = _coherence_key(origin, direction, act, cm.root_min, cm.root_max)
+        _, perm = torch.sort(key, stable=True)
+        origin, direction, t0, act = (a[perm] for a in (origin, direction, t0, act))
+
+    # Dead lanes leave the MT itself, not only the cull: direction 0 ->
+    # every determinant 0 -> never a hit, like the pad rays.
+    direction = torch.where(act[:, None], direction, 0.0)
+    actf = act.to(torch.float32)
+    x = torch.cat([origin, direction, t0[:, None], actf[:, None]], dim=1)  # [npad, 8]
+
+    tile_entry = cull(x, cm.cull_w, cm.blk, tile)
+    sel, lb, lb_over = _select(tile_entry, config.cluster_rounds)
+    r = _ray_rows(x)
+    bt, btri = cluster_rounds(sel, lb, r, t0, actf, cm.w, tile, cm.block)
+
+    # Exactness repair: a ray that its tile's first unselected block could
+    # still beat reruns against every block, bounded by its best t.
+    flagged = act & (lb_over.repeat_interleave(tile) < bt)
+    nflag = int(flagged.sum())
+    if nflag:
+        bt, btri = _repair_merge(bt, btri,
+                                 *sweep(r, bt, cm.w, tile, cm.block, cm.n_real_blocks))
+
+    if perm is not None:  # un-sort
+        bt = torch.empty_like(bt).index_copy_(0, perm, bt)
+        btri = torch.empty_like(btri).index_copy_(0, perm, btri)
+    bt, btri = bt[:n], btri[:n]
+    bt = torch.where(btri >= 0, bt, BIG)
+    zero = torch.zeros((n,), dtype=torch.float32, device=bt.device)
+    hit = TriHit(t=bt, tri=btri, u=zero, v=zero)
+    if collect_stats:
+        return hit, {"tiles": sel.shape[0], "rounds": sel.shape[1], "flagged": nflag,
+                     "repair": "sweep" if nflag else "none"}
+    return hit

@@ -343,19 +343,7 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     kp = cm.n_blocks
     kreal = cm.n_real_blocks
 
-    origin = origin.to(torch.float32) - cm.center_shift
-    direction = direction.to(torch.float32)
-    t0 = (torch.full((n,), BIG, dtype=torch.float32, device=device)
-          if t_init is None else t_init)
-    act = (torch.ones((n,), dtype=torch.bool, device=device)
-           if active is None else active)
-    pad = (-n) % tile
-    if pad:
-        z3 = torch.zeros((pad, 3), dtype=torch.float32, device=device)
-        origin = torch.cat([origin, z3])
-        direction = torch.cat([direction, z3])
-        t0 = torch.cat([t0, torch.zeros((pad,), dtype=torch.float32, device=device)])
-        act = torch.cat([act, torch.zeros((pad,), dtype=torch.bool, device=device)])
+    origin, direction, t0, act = cl._pad_rays(origin, direction, cm, tile, t_init, active)
     ns = origin.shape[0]
 
     direction = torch.where(act[:, None], direction, 0.0)

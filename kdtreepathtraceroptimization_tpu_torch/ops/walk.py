@@ -3,10 +3,10 @@
 The JAX package's ``ops/walk.py`` in PyTorch, with its two TPU kernels
 ported to CUDA (``csrc/slab_cull.cu``, ``csrc/walk.cu``). Per call:
 
-  1. coherence sort: direction octant + origin morton (``_coherence_key``,
-     from the JAX ``ops/traverse.py``), stable, with the rank/permutation
-     helpers of the JAX ``ops/binned.py``; dead rays and rays that miss
-     the mesh's root box sort to the back;
+  1. coherence sort: direction octant + origin morton
+     (``cluster._coherence_key``), stable, with the rank/permutation helpers
+     of ``ops/binned.py``; dead rays and rays that miss the mesh's root box
+     sort to the back;
   2. slab cull (kernel 1): [tiles, K] tile-min conservative AABB entry
      bounds into every block;
   3. full select: each tile's feasible blocks in entry order, plus count;
@@ -28,9 +28,9 @@ import ctypes
 import torch
 
 from kdtreepathtraceroptimization_tpu_torch.ops import cluster as cl
-from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
-from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG, intersect_aabb
+from kdtreepathtraceroptimization_tpu_torch.ops.binned import _apply_perm, _bin_rank
+from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit
 from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, CudaKernel, check_tensor
 
@@ -136,27 +136,17 @@ def vmem_tile_cap(kp: int, budget_bytes: int = 1 << 21) -> int:
 
 
 def _full_select(tile_entry):
-    """Entry-ordered FULL per-tile block lists.
-
-    -> sel [G, K] i32 (entry order; the infeasible tail repeats the last
-    feasible id), lb [G, K] f32 (BIG on the tail), nsel [G, 1] i32
-    feasible count. The sort is stable, as ``jnp.argsort``."""
-    g, kp = tile_entry.shape
-    sorted_e, order = torch.sort(tile_entry, dim=1, stable=True)
-    count = (sorted_e < BIG).sum(dim=1).to(torch.int32)
-    sel = order.to(torch.int32)
-    jj = torch.arange(kp, dtype=torch.int32, device=tile_entry.device)[None, :]
-    last = torch.clamp(count - 1, 0, kp - 1)[:, None].long()
-    last_sel = torch.gather(sel, 1, last)
-    live = jj < count[:, None]
-    sel = torch.where(live, sel, last_sel)
-    lb = torch.where(live, sorted_e, BIG)
-    return sel, lb, count.reshape(g, 1)
+    """Entry-ordered FULL per-tile block lists: ``cluster._select`` over all
+    K rounds -> sel [G, K] i32, lb [G, K] f32 (BIG past the feasible
+    ones), and nsel [G, 1] i32, the feasible count."""
+    sel, lb, _ = cl._select(tile_entry, tile_entry.shape[1])
+    return sel, lb, (lb < BIG).sum(dim=1, dtype=torch.int32)[:, None]
 
 
 def _walk_ref(sel, lb, r, t0, act, w, tile: int, block: int):
-    """Plain walk: every listed round, no early exit — idempotent under
-    the running min, so it matches the early-exiting kernel."""
+    """Plain walk: the round loop over every listed round, each tile
+    skipping the rounds no live ray of it can still improve in, which
+    is where the kernel stops (blocks come in entry order)."""
     return cl._cluster_ref(sel, lb, r, t0, act, w, tile, block, sel.shape[1])
 
 
@@ -191,44 +181,6 @@ def walk(sel, lb, nsel, r, t0, act, w, tile: int, block: int):
 
 
 # ---------------------------------------------------------------------------
-# coherence sort (JAX ops/traverse._coherence_key, ops/binned._bin_rank and
-# _apply_perm)
-# ---------------------------------------------------------------------------
-
-
-def _coherence_key(origin, direction, active, root_min, root_max):
-    """Sort key, most significant first: [inactive or missing the root
-    box] [direction octant] [4-bit-per-axis origin morton]."""
-    hit_root, _ = intersect_aabb(origin, direction, root_min, root_max)
-    octant = (
-        (direction[:, 0] >= 0).to(torch.int32)
-        + 2 * (direction[:, 1] >= 0).to(torch.int32)
-        + 4 * (direction[:, 2] >= 0).to(torch.int32)
-    )
-    span = torch.clamp_min(root_max - root_min, 1e-6)
-    q = torch.clamp(((origin - root_min) / span) * 15.0, 0.0, 15.0).to(torch.int32)
-    morton = torch.zeros_like(octant)
-    for b in range(4):
-        for a in range(3):
-            morton = morton | (((q[:, a] >> b) & 1) << (3 * b + a))
-    key = (octant << 12) | morton
-    return torch.where(active & hit_root, key, 1 << 20)
-
-
-def _bin_rank(bins):
-    """Stable sort rank: perm gathers rays into key order, rank = perm^-1."""
-    _, perm = torch.sort(bins, stable=True)
-    iota = torch.arange(bins.shape[0], device=bins.device)
-    rank = torch.empty_like(perm).scatter_(0, perm, iota)
-    return rank, perm
-
-
-def _apply_perm(a, perm):
-    """Gather rows of a [n, ...] by perm [n]."""
-    return a.index_select(0, perm)
-
-
-# ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
 
@@ -247,26 +199,10 @@ def intersect_mesh_walk(origin, direction, cm: "cl.ClusterMesh", config,
     origin = vm.as_rows(origin)
     direction = vm.as_rows(direction)
     n = origin.shape[0]
-    device = origin.device
     tile = min(config.cluster_tile, vmem_tile_cap(cm.slab.shape[1]))
+    origin, direction, t0, act = cl._pad_rays(origin, direction, cm, tile, t_init, active)
 
-    origin = origin.to(torch.float32) - cm.center_shift
-    direction = direction.to(torch.float32)
-    t0 = (torch.full((n,), BIG, dtype=torch.float32, device=device)
-          if t_init is None else t_init)
-    act = (torch.ones((n,), dtype=torch.bool, device=device)
-           if active is None else active)
-
-    pad = (-n) % tile
-    if pad:
-        z3 = torch.zeros((pad, 3), dtype=torch.float32, device=device)
-        origin = torch.cat([origin, z3])
-        direction = torch.cat([direction, z3])
-        t0 = torch.cat([t0, torch.zeros((pad,), dtype=torch.float32, device=device)])
-        act = torch.cat([act, torch.zeros((pad,), dtype=torch.bool, device=device)])
-    npad = origin.shape[0]
-
-    key = _coherence_key(origin, direction, act, cm.root_min, cm.root_max)
+    key = cl._coherence_key(origin, direction, act, cm.root_min, cm.root_max)
     rank, perm = _bin_rank(key)
 
     direction = torch.where(act[:, None], direction, 0.0)
@@ -278,13 +214,11 @@ def intersect_mesh_walk(origin, direction, cm: "cl.ClusterMesh", config,
     tile_entry = slab_cull(x, cm.slab, cm.blk, tile)
     sel, lb, nsel = _full_select(tile_entry)
 
-    r = mxu_bf.ray_features(x[:, 0:3], x[:, 3:6])
-    r = torch.cat([r, torch.zeros((npad, 6), dtype=torch.float32, device=device)], dim=1)
-
+    r = cl._ray_rows(x)
     bt, btri = walk(sel, lb, nsel, r, t0s, acts, cm.w, tile, cm.block)
 
     bt = _apply_perm(bt, rank)[:n]
     btri = _apply_perm(btri, rank)[:n]
     bt = torch.where(btri >= 0, bt, BIG)
-    zero = torch.zeros((n,), dtype=torch.float32, device=device)
+    zero = torch.zeros((n,), dtype=torch.float32, device=bt.device)
     return TriHit(t=bt, tri=btri, u=zero, v=zero)

@@ -8,11 +8,12 @@ loop is a Python loop over a fixed-shape wavefront (finished lanes are
 masked, never removed), so lane i is pixel i throughout.
 
 Meshes take the pair-list intersector (``ops/pairs.py``, the default
-for a mesh with a cluster table), the exact cluster walk (``ops/walk.py``)
-or, with ``enable_kd=False``, a brute force (``ops/mxu_bf.py`` or
-``ops/mesh.py``). The KD walk, the cluster-rounds and binned
-intersectors, the wavefront reorderings (compaction, material sort) and
-the ray cache raise ``NotImplementedError``. Entry points run on the CUDA
+for a mesh with a cluster table), the exact cluster walk (``ops/walk.py``),
+the binned intersector (``ops/binned.py``), the cluster-rounds intersector
+(``ops/cluster.py``) or, with ``enable_kd=False``, a brute force
+(``ops/mxu_bf.py`` or ``ops/mesh.py``). The KD walk, the wavefront
+reorderings (compaction, material sort) and the ray cache raise
+``NotImplementedError``. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 
 ``trace_iteration`` and ``trace_rays`` are differentiable (the JAX
@@ -35,7 +36,9 @@ from kdtreepathtraceroptimization_tpu_torch.ops import bsdf, mxu_bf, shade
 from kdtreepathtraceroptimization_tpu_torch.ops import intersect as isect
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as mesh_ops
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
+from kdtreepathtraceroptimization_tpu_torch.ops.binned import intersect_mesh_binned
 from kdtreepathtraceroptimization_tpu_torch.ops.camera import RaySoA, generate_rays
+from kdtreepathtraceroptimization_tpu_torch.ops.cluster import intersect_mesh_cluster
 from kdtreepathtraceroptimization_tpu_torch.ops.rng import Key, bounce_key, prng_key, uniform_cols
 from kdtreepathtraceroptimization_tpu_torch.ops.pairs import intersect_mesh_pairs
 from kdtreepathtraceroptimization_tpu_torch.ops.walk import intersect_mesh_walk
@@ -44,8 +47,8 @@ from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, 
 
 def mesh_route(mesh, cmesh, config: RenderConfig) -> Optional[str]:
     """The mesh intersector ``config`` selects (the JAX dispatch): None
-    without a mesh, else "pairs", "walk", "mxu" or "brute"; raises for
-    the intersectors not ported yet."""
+    without a mesh, else "pairs", "walk", "binned", "cluster", "mxu" or
+    "brute"; raises for the KD walk, not ported yet."""
     if mesh is None:
         return None
     use_cluster = cmesh is not None and (
@@ -59,8 +62,8 @@ def mesh_route(mesh, cmesh, config: RenderConfig) -> Optional[str]:
         if config.cluster_walk:
             return "walk"
         if config.cluster_binned:
-            raise NotImplementedError("the binned cluster intersector is not ported yet")
-        raise NotImplementedError("the cluster-rounds intersector is not ported yet")
+            return "binned"
+        return "cluster"
     if config.enable_kd:
         raise NotImplementedError(
             "the KD-tree intersector is not ported yet; give the scene a "
@@ -104,12 +107,18 @@ def intersect_scene(origin, direction, geoms, mesh, config: RenderConfig,
         elif route == "walk":
             tri_hit = intersect_mesh_walk(origin, direction, cmesh, config,
                                           t_init=t_init, active=active)
+        elif route == "binned":
+            tri_hit = intersect_mesh_binned(origin, direction, cmesh, config,
+                                            t_init=t_init, active=active)
+        elif route == "cluster":
+            tri_hit = intersect_mesh_cluster(origin, direction, cmesh, config,
+                                             t_init=t_init, active=active)
         elif route == "mxu":
             tri_hit = mxu_bf.intersect_mesh_mxu(origin, direction, mesh, t_max=t_init)
         else:
             tri_hit = mesh_ops.intersect_mesh_brute(origin, direction, mesh,
                                                     use_bbox=config.use_bbox)
-    packed = cmesh.packed if route in ("pairs", "walk") else mesh_packed
+    packed = mesh_packed if route in ("mxu", "brute") else cmesh.packed
     mesh_hit = mesh_ops.tri_hit_to_hit(origin, direction, tri_hit, packed)
     return isect._min_hit(hit, mesh_hit)
 

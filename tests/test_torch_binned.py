@@ -1,0 +1,169 @@
+"""The binned intersector and its kernel's plain version against the JAX
+package.
+
+Inputs are the JAX binned tests' meshes and ray sets (numpy seeds), plus
+rays that start on the mesh, inside several bounding spheres at once, so
+that many blocks tie at entry 0. Tolerances: the argmin bins bit for bit
+(against the JAX jnp mirror and the TPU kernel in interpret mode: every
+bin here is the same although ``x @ cull_w`` rounds some entries
+differently); the intersector's triangle ids exactly, with t within 1e-6
+relative (a 16-term float32 product summed in another order); brute force
+within the JAX binned tests' own 2e-4.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kdtreepathtraceroptimization_tpu.config import RenderConfig as JCfg
+from kdtreepathtraceroptimization_tpu.ops import binned as jbn
+from kdtreepathtraceroptimization_tpu.render.integrator import render as jrender
+from kdtreepathtraceroptimization_tpu.scene import parser as jparser
+from kdtreepathtraceroptimization_tpu_torch import render_loss
+from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig as TCfg
+from kdtreepathtraceroptimization_tpu_torch.convert import materials_to_torch, scene_from_numpy
+from kdtreepathtraceroptimization_tpu_torch.ops import binned as tbn
+from kdtreepathtraceroptimization_tpu_torch.ops.rng import prng_key
+from kdtreepathtraceroptimization_tpu_torch.render.integrator import mesh_route, render
+from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
+from tests.test_cluster import _rays
+from tests.test_torch_cluster import (
+    _aimed_rays,
+    _assert_hits,
+    _check_against_brute,
+    _t,
+    _tables,
+    _x,
+)
+from tests.test_torch_render import CORNELL, GOLDENS, _mesh_obj
+
+BINNED = dict(cluster=True, cluster_pairs=False, cluster_binned=True)
+
+
+def _surface_x(cm, n, seed):
+    """[n, 8] records of rays leaving points of the icosphere (radius 2,
+    centre (0.3, -0.2, 0.5)) in random directions: each origin lies inside
+    several blocks' spheres, whose entry bounds are all 0."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    o = np.array([0.3, -0.2, 0.5]) + 2.0 * u
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return np.concatenate([o - np.asarray(cm.center_shift), d, np.full((n, 1), 1e30),
+                           np.ones((n, 1))], axis=1).astype(np.float32)
+
+
+def test_argmin_matches_jax_ref_and_pallas_interpret():
+    _, jcm, tcm = _tables(2)
+    x = np.concatenate([_x(jcm, 1024, seed=11), _surface_x(jcm, 1024, seed=12)])
+    got = tbn.argmin_bins(_t(x), tcm.cull_w, tcm.blk).numpy()
+    entry0 = np.asarray(jbn.cl._cull_ref(jnp.asarray(x), jcm.cull_w, jcm.blk, 1)) == 0
+    assert (entry0[1024:].sum(axis=1) > 1).mean() > 0.5  # ties at entry 0
+    assert 0.1 < (got < jcm.n_blocks).mean() < 0.99
+    np.testing.assert_array_equal(np.asarray(jbn._argmin_ref(jnp.asarray(x), jcm.cull_w,
+                                                             jcm.blk)), got)
+    np.testing.assert_array_equal(
+        np.asarray(jbn._argmin_pallas(jnp.asarray(x), jcm.cull_w, jcm.blk, 256, True)), got)
+
+
+@pytest.mark.parametrize("rounds, repair", [(1, "compact"), (4, "compact"), (32, "none")])
+def test_binned_matches_jax_and_brute(rounds, repair):
+    """1,280 triangles in 20 blocks, 4,096 rays; rounds = 1 and 4 leave
+    feasible blocks unselected, so rays flag and the compacted pass
+    repairs them."""
+    mesh, jcm, tcm = _tables(3)
+    o, d = _rays(4096)
+    kw = dict(cluster_tile=512, binned_rounds=rounds, **BINNED)
+    hit, stats = tbn.intersect_mesh_binned(_t(o), _t(d), tcm, TCfg(**kw), collect_stats=True)
+    assert stats["repair"] == repair and (stats["flagged"] > 0) == (repair != "none")
+    _check_against_brute(mesh, o, d, hit)
+    hj = jax.jit(lambda o, d: jbn.intersect_mesh_binned(o, d, jcm, JCfg(**kw)))(o, d)
+    _assert_hits((hj.t, hj.tri), hit.t, hit.tri)
+
+
+def test_binned_sweep_fallback(monkeypatch):
+    """More flagged rays than the repair buffer take the sweep, in both
+    packages."""
+    mesh, jcm, tcm = _tables(3)
+    o, d = _rays(2048, seed=7)
+    monkeypatch.setattr(tbn, "REPAIR_LANES", 64)
+    monkeypatch.setattr(jbn, "REPAIR_LANES", 64)
+    kw = dict(cluster_tile=256, binned_rounds=1, **BINNED)
+    hit, stats = tbn.intersect_mesh_binned(_t(o), _t(d), tcm, TCfg(**kw), collect_stats=True)
+    assert stats["repair"] == "sweep" and stats["flagged"] > 64
+    _check_against_brute(mesh, o, d, hit)
+    hj = jax.jit(lambda o, d: jbn.intersect_mesh_binned(o, d, jcm, JCfg(**kw)))(o, d)
+    _assert_hits((hj.t, hj.tri), hit.t, hit.tri)
+
+
+def test_binned_t_init_and_active_masking():
+    """The result with a bound and dead lanes is the unbounded one, cut: a
+    hit beyond its lane's bound and any hit of a dead lane are misses."""
+    _, _, tcm = _tables(2)
+    o, d = _aimed_rays(500, seed=5)
+    cfg = TCfg(cluster_tile=256, binned_rounds=2, **BINNED)
+    base = tbn.intersect_mesh_binned(_t(o), _t(d), tcm, cfg)
+    act = torch.arange(500) % 3 != 0
+    t_init = torch.linspace(1.0, 8.0, 500)
+    hit = tbn.intersect_mesh_binned(_t(o), _t(d), tcm, cfg, t_init=t_init, active=act)
+    keep = act & (base.t < t_init)
+    assert keep.sum() > 20 and (~keep & (base.tri >= 0)).sum() > 20
+    assert torch.equal(hit.tri, torch.where(keep, base.tri, -1))
+    assert torch.equal(hit.t, torch.where(keep, base.t, 1e30))
+
+
+def test_binned_shards_are_not_ported():
+    _, _, tcm = _tables(1)
+    o, d = _rays(256, seed=9)
+    with pytest.raises(NotImplementedError, match="binned_shards"):
+        tbn.intersect_mesh_binned(_t(o), _t(d), tcm,
+                                  TCfg(cluster_tile=256, binned_shards=4, **BINNED))
+
+
+def test_binned_render_matches_jax(tmp_path):
+    """24x24, depth 2, 2 spp, a 1,280-triangle sphere with binned rounds =
+    4 (so the compacted repair runs): both packages render the identical
+    scene tables. Bound: mean |d| <= 2e-3."""
+    jscene = jparser.with_resolution(
+        jparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5), build_kd=False),
+        24, 24)
+    tscene = scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
+    kw = dict(trace_depth=2, antialias=True, cluster_tile=256, binned_rounds=4, **BINNED)
+    assert mesh_route(tscene.mesh, tscene.cmesh, TCfg(**kw)) == "binned"
+    img_j = np.asarray(jrender(jscene, JCfg(**kw), spp=2, seed=0))
+    img_t = render(tscene, TCfg(**kw), spp=2, seed=0, device="cpu").numpy()
+    assert np.abs(img_j - img_t).mean() <= 2e-3
+
+
+def test_mesh_pairs_48_golden_in_binned_config(tmp_path):
+    """The pair-list golden's scene and seed through the binned
+    intersector (tests/test_golden.py:78-81's config): mean |d| <= 1e-2,
+    the cross-mode bound of the golden tests."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 4, 2.0), device="cpu"),
+        48, 48)
+    img = render(scene, TCfg(trace_depth=4, cluster_tile=256, binned_rounds=8, **BINNED),
+                 spp=8, seed=0, device="cpu").numpy()
+    assert np.abs(img - np.load(os.path.join(GOLDENS, "mesh_pairs_48.npy"))).mean() <= 1e-2
+
+
+def test_binned_material_grad_equals_the_pair_route(tmp_path):
+    """Both intersectors are exact, so a render MSE's material gradient
+    through the binned route equals the pair route's: the same hits give
+    the same graph."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5), device="cpu"),
+        16, 16)
+    grads = []
+    for route in (BINNED, dict(cluster=True, cluster_pairs=True)):
+        cfg = TCfg(trace_depth=3, antialias=True, cluster_tile=256, binned_rounds=4, **route)
+        mats = materials_to_torch(scene.materials, "cpu", requires_grad=True)
+        loss = render_loss(mats, scene, cfg, prng_key(0), 1, torch.zeros((256, 3)))
+        grads.append(torch.autograd.grad(loss, mats.color))
+    assert grads[0][0].abs().max() > 0
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-6, atol=0)

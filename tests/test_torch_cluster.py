@@ -1,0 +1,284 @@
+"""The cluster-rounds intersector and its kernels' plain versions against the
+JAX package.
+
+Inputs are the JAX cluster tests' meshes and ray sets (numpy seeds).
+Tolerances, and why:
+
+- the sphere cull equals the TPU kernel run in interpret mode bit for
+  bit (both take each (d.c | o.c) half as its three non-zero products);
+  against the JAX jnp mirror, whose ``x @ cull_w`` sums eight products in
+  another order, the infeasible pattern is equal and the entries within
+  2e-6 (an ulp of the largest entries here, the closest approach minus
+  the radius cancelling);
+- ``_select`` bit for bit (both sorts are stable);
+- the plain rounds and sweep: triangle ids exactly, t within 1e-6
+  relative (a 16-term float32 product summed in another order);
+- whole intersectors: ids and t against the JAX intersector as above, and
+  against brute force within the JAX cluster tests' own 2e-4.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kdtreepathtraceroptimization_tpu.config import RenderConfig as JCfg
+from kdtreepathtraceroptimization_tpu.ops import cluster as jcl
+from kdtreepathtraceroptimization_tpu.ops import mxu_bf as jmxu
+from kdtreepathtraceroptimization_tpu.ops.mesh import intersect_mesh_brute
+from kdtreepathtraceroptimization_tpu.render.integrator import render as jrender
+from kdtreepathtraceroptimization_tpu.scene import parser as jparser
+from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig as TCfg
+from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
+from kdtreepathtraceroptimization_tpu_torch.ops import cluster as tcl
+from kdtreepathtraceroptimization_tpu_torch.render.integrator import mesh_route, render
+from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
+from tests.test_cluster import _mesh, _rays
+from tests.test_torch_render import CORNELL, GOLDENS, _mesh_obj
+
+T_RTOL = 1e-6
+CLUSTER = dict(cluster=True, cluster_pairs=False)
+# The JAX round loop, compiled once per shape (its scan compiles slowly
+# op by op).
+_jax_cluster_ref = jax.jit(jcl._cluster_ref, static_argnums=(6, 7, 8))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _tables(subdiv, block=64):
+    mesh = _mesh(subdiv)
+    return mesh, jcl.build_cluster_mesh(mesh, block=block), tcl.build_cluster_mesh(
+        mesh, block=block, device="cpu")
+
+
+def _aimed_rays(n, seed):
+    """Rays from about 4 units out aimed near the test sphere's centre
+    (tests.test_cluster._mesh): most hit it."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3)).astype(np.float32) * 4.0
+    d = np.array([0.3, -0.2, 0.5], np.float32) + rng.normal(size=(n, 3)) * 1.5 - o
+    return o, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _x(cm, n, seed):
+    """[n, 8] ray records (o d t0 act) centred on the table: aimed rays,
+    dead rays (every 7th, direction zeroed) and t0 bounds from 0.5 to 30."""
+    o, d = _aimed_rays(n, seed)
+    act = np.arange(n) % 7 != 0
+    t0 = np.linspace(0.5, 30.0, n, dtype=np.float32)
+    return np.concatenate([np.asarray(o - cm.center_shift), np.asarray(d) * act[:, None],
+                           t0[:, None], act[:, None]], axis=1).astype(np.float32)
+
+
+def _features(x):
+    """[n, 16] MT feature rows of the records, as the JAX pipeline builds
+    them."""
+    x = jnp.asarray(x)
+    return jnp.concatenate([jmxu.ray_features(x[:, 0:3], x[:, 3:6]),
+                            jnp.zeros((x.shape[0], 6), jnp.float32)], axis=1)
+
+
+def _assert_hits(want, bt, btri):
+    (wt, wtri) = want
+    np.testing.assert_array_equal(np.asarray(wtri), btri.numpy())
+    np.testing.assert_allclose(np.asarray(wt), bt.numpy(), rtol=T_RTOL)
+
+
+# --------------------------------------------------------------------------
+# kernel 9: the sphere cull
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tile", [1, 128, 256])
+def test_cull_matches_jax_ref(tile):
+    _, jcm, tcm = _tables(2)
+    x = _x(jcm, 2048, seed=3)
+    want = np.asarray(jcl._cull_ref(jnp.asarray(x), jcm.cull_w, jcm.blk, tile))
+    got = tcl.cull(_t(x), tcm.cull_w, tcm.blk, tile).numpy()
+    assert (want < 1e30).any()
+    np.testing.assert_array_equal(want < 1e30, got < 1e30)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+def test_cull_matches_pallas_interpret_bit_for_bit():
+    _, jcm, tcm = _tables(2)
+    x = _x(jcm, 1024, seed=3)
+    interp = np.asarray(jcl._cull_pallas(jnp.asarray(x), jcm.cull_w, jcm.blk, 256, True))
+    got = tcl.cull(_t(x), tcm.cull_w, tcm.blk, 256).numpy()
+    np.testing.assert_array_equal(interp, got)
+
+
+def test_cull_tables_match_the_jax_build():
+    _, jcm, tcm = _tables(3)
+    for name in ("cull_w", "blk", "w"):
+        np.testing.assert_array_equal(np.asarray(getattr(jcm, name)),
+                                      getattr(tcm, name).numpy())
+
+
+# --------------------------------------------------------------------------
+# select
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rounds", [1, 4, 128, 500])
+def test_select_matches_jax(rounds):
+    """JAX's own tile_entry, many ties, a tile with no feasible block and
+    one with every block feasible; rounds below, at and above kp = 128."""
+    _, jcm, _ = _tables(2)
+    te = np.array(jcl._cull_ref(jnp.asarray(_x(jcm, 2048, seed=5)), jcm.cull_w, jcm.blk, 256))
+    rng = np.random.default_rng(0)
+    te[0, :40] = rng.integers(0, 8, 40).astype(np.float32)  # ties
+    te[1] = 1e30
+    te[2] = rng.integers(0, 4, 128).astype(np.float32)
+    for got, want in zip(tcl._select(_t(te), rounds), jcl._select(jnp.asarray(te), rounds)):
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+# --------------------------------------------------------------------------
+# kernels 10 and 11: rounds and sweep
+# --------------------------------------------------------------------------
+
+
+def _round_inputs(jcm, tile, rounds, n=1024, seed=3):
+    x = _x(jcm, n, seed)
+    sel, lb, _ = jcl._select(jcl._cull_ref(jnp.asarray(x), jcm.cull_w, jcm.blk, tile), rounds)
+    return sel, lb, _features(x), jnp.asarray(x[:, 6]), jnp.asarray(x[:, 7])
+
+
+@pytest.mark.parametrize("tile, rounds", [(128, 4), (256, 64)])
+def test_cluster_rounds_matches_jax_ref(tile, rounds):
+    _, jcm, tcm = _tables(2)
+    sel, lb, r, t0, act = _round_inputs(jcm, tile, rounds)
+    want = _jax_cluster_ref(sel, lb, r, t0, act, jcm.w, tile, jcm.block, sel.shape[1])
+    bt, btri = tcl.cluster_rounds(_t(sel), _t(lb), _t(r), _t(t0), _t(act), tcm.w, tile,
+                                  tcm.block)
+    assert (np.asarray(want[1]) >= 0).sum() > 200
+    _assert_hits(want, bt, btri)
+
+
+def test_cluster_rounds_matches_pallas_interpret():
+    _, jcm, tcm = _tables(2)
+    sel, lb, r, t0, act = _round_inputs(jcm, 256, 4)
+    want = jcl._cluster_pallas(sel, lb, r, t0, act, jcm.w, 256, jcm.block, 4, True)
+    bt, btri = tcl.cluster_rounds(_t(sel), _t(lb), _t(r), _t(t0), _t(act), tcm.w, 256,
+                                  tcm.block)
+    _assert_hits(want, bt, btri)
+
+
+def test_sweep_matches_jax_ref_and_pallas_interpret():
+    """Against the JAX package's own repair forms: ``_cluster_ref`` over
+    every block with lb=None, and the sweep kernel in interpret mode. The
+    port's sweep skips the lane-padding blocks, whose zero weights never
+    hit."""
+    _, jcm, tcm = _tables(2)
+    x = _x(jcm, 1024, seed=4)
+    r, t0 = _features(x), jnp.asarray(x[:, 6])
+    g, kp = 1024 // 256, jcm.n_blocks
+    all_sel = jnp.broadcast_to(jnp.arange(kp, dtype=jnp.int32)[None, :], (g, kp))
+    refs = (_jax_cluster_ref(all_sel, None, r, t0, jnp.ones(1024), jcm.w, 256, jcm.block, kp),
+            jcl._sweep_pallas(r, t0, jcm.w, 256, jcm.block, True))
+    bt, btri = tcl.sweep(_t(r), _t(t0), tcm.w, 256, tcm.block, tcm.n_real_blocks)
+    assert (btri.numpy() >= 0).sum() > 200 and tcm.n_real_blocks < kp
+    for want in refs:
+        _assert_hits(want, bt, btri)
+
+
+# --------------------------------------------------------------------------
+# the intersector
+# --------------------------------------------------------------------------
+
+
+def _check_against_brute(mesh, o, d, hit):
+    hb = intersect_mesh_brute(o, d, jax.tree.map(jnp.asarray, mesh), use_bbox=False)
+    t_c, t_b = hit.t.numpy(), np.asarray(hb.t)
+    miss_c, miss_b = t_c >= 1e30, t_b >= 1e30
+    assert (miss_c == miss_b).all(), f"{(miss_c != miss_b).sum()} hit/miss diffs"
+    np.testing.assert_allclose(t_c[~miss_c], t_b[~miss_b], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("rounds, repair", [(1, "sweep"), (4, "sweep"), (64, "none")])
+def test_cluster_matches_jax_and_brute(rounds, repair):
+    """1,280 triangles in 20 blocks, 4,096 rays; rounds = 1 and 4 leave
+    feasible blocks unselected, so rays flag and the sweep repairs them.
+    Against the JAX intersector at rounds 4 and 64 (its sweep compiles
+    slowly at 1), against brute force at all three."""
+    mesh, jcm, tcm = _tables(3)
+    o, d = _rays(4096)
+    kw = dict(cluster_tile=512, cluster_rounds=rounds, **CLUSTER)
+    hit, stats = tcl.intersect_mesh_cluster(_t(o), _t(d), tcm, TCfg(**kw), collect_stats=True)
+    assert stats["repair"] == repair and (stats["flagged"] > 0) == (repair == "sweep")
+    _check_against_brute(mesh, o, d, hit)
+    if rounds > 1:
+        hj = jax.jit(lambda o, d: jcl.intersect_mesh_cluster(o, d, jcm, JCfg(**kw)))(o, d)
+        _assert_hits((hj.t, hj.tri), hit.t, hit.tri)
+
+
+def test_cluster_without_coherence_sort_matches_jax():
+    _, jcm, tcm = _tables(2)
+    o, d = _rays(1024, seed=6)
+    kw = dict(cluster_tile=256, cluster_rounds=4, cluster_sort=False, **CLUSTER)
+    hit = tcl.intersect_mesh_cluster(_t(o), _t(d), tcm, TCfg(**kw))
+    hj = jax.jit(lambda o, d: jcl.intersect_mesh_cluster(o, d, jcm, JCfg(**kw)))(o, d)
+    _assert_hits((hj.t, hj.tri), hit.t, hit.tri)
+
+
+def test_cluster_t_init_and_active_masking():
+    """A bound below every hit leaves only misses; dead lanes never hit
+    and never flag; with a bound per lane, some dead lanes and n not a
+    multiple of the tile, the result is the unbounded one, cut."""
+    _, _, tcm = _tables(2)
+    o, d = _aimed_rays(500, seed=5)
+    cfg = TCfg(cluster_tile=256, cluster_rounds=2, **CLUSTER)
+    bounded = tcl.intersect_mesh_cluster(_t(o), _t(d), tcm, cfg, t_init=torch.full((500,), 1e-3))
+    assert (bounded.t >= 1e30).all() and (bounded.tri == -1).all()
+    dead, stats = tcl.intersect_mesh_cluster(_t(o), _t(d), tcm, cfg,
+                                             active=torch.zeros(500, dtype=torch.bool),
+                                             collect_stats=True)
+    assert (dead.t >= 1e30).all() and stats["flagged"] == 0
+    base = tcl.intersect_mesh_cluster(_t(o), _t(d), tcm, cfg)
+    act = torch.arange(500) % 3 != 0
+    t_init = torch.linspace(1.0, 8.0, 500)
+    hit = tcl.intersect_mesh_cluster(_t(o), _t(d), tcm, cfg, t_init=t_init, active=act)
+    keep = act & (base.t < t_init)
+    assert keep.sum() > 20 and (~keep & (base.tri >= 0)).sum() > 20
+    assert torch.equal(hit.tri, torch.where(keep, base.tri, -1))
+    assert torch.equal(hit.t, torch.where(keep, base.t, 1e30))
+
+
+# --------------------------------------------------------------------------
+# renders
+# --------------------------------------------------------------------------
+
+
+def test_cluster_render_matches_jax(tmp_path):
+    """24x24, depth 2, 2 spp, a 1,280-triangle sphere with cluster rounds
+    = 4 (so the sweep runs): both packages render the identical scene
+    tables. Bound: mean |d| <= 2e-3 (rounding moves a path only where a
+    ray grazes an edge)."""
+    jscene = jparser.with_resolution(
+        jparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5), build_kd=False),
+        24, 24)
+    tscene = scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
+    kw = dict(trace_depth=2, antialias=True, cluster_tile=256, cluster_rounds=4, **CLUSTER)
+    assert mesh_route(tscene.mesh, tscene.cmesh, TCfg(**kw)) == "cluster"
+    img_j = np.asarray(jrender(jscene, JCfg(**kw), spp=2, seed=0))
+    img_t = render(tscene, TCfg(**kw), spp=2, seed=0, device="cpu").numpy()
+    assert np.abs(img_j - img_t).mean() <= 2e-3
+
+
+def test_mesh_pairs_48_golden_in_cluster_config(tmp_path):
+    """The pair-list golden's scene and seed through cluster rounds
+    (tests/test_cluster.py:206-207's config): both intersectors are exact,
+    so the images agree to the golden tests' cross-mode bound (mean |d|
+    <= 1e-2)."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 4, 2.0), device="cpu"),
+        48, 48)
+    img = render(scene, TCfg(trace_depth=4, cluster_tile=256, cluster_rounds=6, **CLUSTER),
+                 spp=8, seed=0, device="cpu").numpy()
+    assert np.abs(img - np.load(os.path.join(GOLDENS, "mesh_pairs_48.npy"))).mean() <= 1e-2

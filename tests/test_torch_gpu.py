@@ -9,10 +9,11 @@ needs more than 48 KB of shared memory, 64- to 1024-triangle blocks,
 tiles with empty feasible lists or only dead rays, 1 to 16 pair slots,
 block tables of 1024 to 8192 blocks, pair tiles that are all sentinel or
 split a run, triangle counts that are not a multiple of the brute
-force's block, and bad arguments. Tolerances: slab cull, extraction and
-gather-to-columns bit for bit; walk and brute-force triangle ids exactly
-and t within 1e-5 relative (their 10-term sums may round differently
-from the batched product); the pair test's loc on >= 99.9% of real
+force's block, as many rounds as blocks, a single tile, and bad
+arguments. Tolerances: slab cull, sphere cull, argmin bins, extraction
+and gather-to-columns bit for bit; walk, rounds, sweep and brute-force
+triangle ids exactly and t within 1e-5 relative (their 10-term sums may
+round differently from the batched product); the pair test's loc on >= 99.9% of real
 pairs and t within 2^-12 relative (the same rounding, seen through the
 2^-13 truncation of the packed key); the scatter-add of kernel 4 per
 entry within 1e-5 of the sum of the |contributions| to it (its float
@@ -24,6 +25,8 @@ import pytest
 import torch
 
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
+from kdtreepathtraceroptimization_tpu_torch.ops import binned as tbinned
+from kdtreepathtraceroptimization_tpu_torch.ops import cluster as tcl
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf
 from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
@@ -328,5 +331,137 @@ def test_pair_intersector_on_cuda_matches_cpu(cuda):
                                         collect_stats=True)
             for dev in (cuda, torch.device("cpu"))]
     assert hits[0][1]["pass3_rays"] > 0
+    assert torch.equal(hits[0][0].tri.cpu(), hits[1][0].tri)
+    torch.testing.assert_close(hits[0][0].t.cpu(), hits[1][0].t, rtol=1e-5, atol=0)
+
+
+# --------------------------------------------------------------------------
+# kernels 9-12: the sphere cull, rounds, sweep and argmin bins
+# --------------------------------------------------------------------------
+
+
+def _records(cm, n, dead_tail, seed):
+    """[n, 8] ray records (o d t0 act) of _walk_inputs' rays: some dead,
+    the last ``dead_tail`` all dead."""
+    x, *_ = _walk_inputs(cm, n, dead_tail, seed=seed)
+    return x[:, :8].contiguous()
+
+
+@pytest.mark.parametrize("subdiv, block, tile", [(4, 64, 256), (4, 64, 1024), (5, 8, 128),
+                                                 (4, 64, 4096)])
+def test_cluster_cull_kernel_bit_equal(cuda, subdiv, block, tile):
+    """kp 128 and 2560; a ray tile of 4096 needs 160 KB of shared memory."""
+    cm = build_cluster_mesh(_mesh(subdiv), block=block, device=cuda)
+    x = _records(cm, 8192, tile, seed=tile)
+    before = tcl.CULL.launches
+    got = tcl.cull(x, cm.cull_w, cm.blk, tile)
+    want = tcl._cull_ref(x, cm.cull_w, cm.blk, tile)
+    assert tcl.CULL.launches == before + 1
+    assert int((want < 1e30).sum()) > 100 and bool((want[-1] >= 1e30).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("subdiv, block", [(4, 64), (5, 8), (6, 10)])
+def test_argmin_kernel_bit_equal(cuda, subdiv, block):
+    """kp from 128 to 8192: more blocks than one staged chunk of 1024;
+    3,000 rays, not a multiple of the 256-thread block."""
+    cm = build_cluster_mesh(_mesh(subdiv), block=block, device=cuda)
+    x = _records(cm, 4096, 256, seed=block)[:3000].contiguous()
+    before = tbinned.ARGMIN.launches
+    got = tbinned.argmin_bins(x, cm.cull_w, cm.blk)
+    want = tbinned._argmin_ref(x, cm.cull_w, cm.blk)
+    assert tbinned.ARGMIN.launches == before + 1
+    assert 0.2 < (want < cm.n_blocks).float().mean().item() < 0.99
+    assert torch.equal(got, want)
+
+
+def _round_inputs(cm, n, tile, rounds, seed):
+    """The rounds' inputs for n rays in tiles of ``tile``; the last tile
+    is all dead when there are several."""
+    x = _records(cm, n, tile if n > tile else 128, seed)
+    sel, lb, _ = tcl._select(tcl._cull_ref(x, cm.cull_w, cm.blk, tile), rounds)
+    return sel, lb, tcl._ray_rows(x), x[:, 6].contiguous(), x[:, 7].contiguous()
+
+
+@pytest.mark.parametrize("block, tile, rounds, n_tiles", [
+    (64, 256, 4, 8), (256, 1024, 64, 8), (1024, 128, 16, 8),
+    (64, 512, 1 << 20, 4),  # R = kp (select caps the rounds)
+    (256, 1024, 8, 1),  # one tile
+])
+def test_cluster_rounds_kernel_matches_plain(cuda, block, tile, rounds, n_tiles):
+    cm = build_cluster_mesh(_mesh(5), block=block, device=cuda)
+    n = n_tiles * tile
+    sel, lb, r, t0, act = _round_inputs(cm, n, tile, rounds, seed=block + tile)
+    if rounds > cm.n_blocks:
+        assert sel.shape[1] == cm.n_blocks
+    if n_tiles > 1:  # the dead last tile has an empty list
+        assert bool((lb[-1] >= 1e30).all())
+    before = tcl.ROUNDS.launches
+    bt_k, btri_k = tcl.cluster_rounds(sel, lb, r, t0, act, cm.w, tile, block)
+    bt_p, btri_p = tcl._cluster_ref(sel, lb, r, t0, act, cm.w, tile, block, sel.shape[1])
+    assert tcl.ROUNDS.launches == before + 1
+    assert int((btri_p >= 0).sum()) > (n // 8 if rounds >= 16 else 10)
+    assert torch.equal(btri_k, btri_p)
+    torch.testing.assert_close(bt_k, bt_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("block, tile", [(64, 256), (256, 1024)])
+def test_sweep_kernel_matches_plain(cuda, block, tile):
+    cm = build_cluster_mesh(_mesh(4), block=block, device=cuda)
+    x = _records(cm, 4 * tile, tile, seed=block)
+    r, t0 = tcl._ray_rows(x), x[:, 6].contiguous()
+    before = tcl.SWEEP.launches
+    bt_k, btri_k = tcl.sweep(r, t0, cm.w, tile, block, cm.n_real_blocks)
+    bt_p, btri_p = tcl._sweep_ref(r, t0, cm.w, tile, block, cm.n_real_blocks)
+    assert tcl.SWEEP.launches == before + 1
+    assert int((btri_p >= 0).sum()) > tile
+    assert torch.equal(btri_k, btri_p)
+    torch.testing.assert_close(bt_k, bt_p, rtol=1e-5, atol=0)
+
+
+def test_cluster_wrappers_check_their_arguments(cuda):
+    cm = build_cluster_mesh(_mesh(3), block=64, device=cuda)
+    sel, lb, r, t0, act = _round_inputs(cm, 1024, 256, 4, seed=0)
+    x = _records(cm, 1024, 256, seed=0)
+    with pytest.raises(ValueError):
+        tcl.cull(x, cm.cull_w, cm.blk, 384)  # does not divide n
+    with pytest.raises(ValueError):
+        tcl.cull(x, cm.cull_w, cm.blk, 8192)  # 320 KB of rays
+    with pytest.raises(ValueError):
+        tcl.cull(x.double(), cm.cull_w, cm.blk, 256)
+    with pytest.raises(ValueError):
+        tcl.cull(x, cm.cull_w[:, :-1].contiguous(), cm.blk, 256)
+    with pytest.raises(ValueError):
+        tcl.cluster_rounds(sel.long(), lb, r, t0, act, cm.w, 256, 64)
+    with pytest.raises(ValueError):  # 2048-triangle blocks need 320 KB
+        tcl.cluster_rounds(sel, lb, r, t0, act, cm.w, 256, 2048)
+    with pytest.raises(ValueError):  # 2 rays: not 4 per thread
+        tcl.sweep(r[:2], t0[:2], cm.w, 2, 64, cm.n_real_blocks)
+    with pytest.raises(ValueError):
+        tcl.sweep(r, t0, cm.w, 256, 64, cm.n_blocks + 1)
+    with pytest.raises(ValueError):
+        tbinned.argmin_bins(x[:, :7], cm.cull_w, cm.blk)
+    before = (tcl.CULL.launches, tbinned.ARGMIN.launches)
+    assert tcl.cull(x[:0], cm.cull_w, cm.blk, 256).shape == (0, cm.n_blocks)
+    assert tbinned.argmin_bins(x[:0], cm.cull_w, cm.blk).shape == (0,)
+    assert (tcl.CULL.launches, tbinned.ARGMIN.launches) == before
+
+
+@pytest.mark.parametrize("route", ["cluster", "binned"])
+def test_cluster_and_binned_intersectors_on_cuda_match_cpu(cuda, route):
+    """The whole intersectors with one round, so that rays flag: the
+    cluster path's sweep and binned's compacted pass run on the card."""
+    mesh = _mesh(4)
+    rng = np.random.default_rng(3)
+    o = rng.normal(size=(8192, 3)).astype(np.float32) * 4.0
+    d = np.array([0.3, -0.2, 0.5], np.float32) + rng.normal(size=(8192, 3)) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    cfg = RenderConfig(cluster=True, cluster_pairs=False, cluster_binned=route == "binned",
+                       cluster_tile=256, cluster_rounds=1, binned_rounds=1)
+    fn = tcl.intersect_mesh_cluster if route == "cluster" else tbinned.intersect_mesh_binned
+    hits = [fn(torch.tensor(o, device=dev), torch.tensor(d, device=dev),
+               build_cluster_mesh(mesh, block=64, device=dev), cfg, collect_stats=True)
+            for dev in (cuda, torch.device("cpu"))]
+    assert hits[0][1]["repair"] == hits[1][1]["repair"] != "none"
     assert torch.equal(hits[0][0].tri.cpu(), hits[1][0].tri)
     torch.testing.assert_close(hits[0][0].t.cpu(), hits[1][0].t, rtol=1e-5, atol=0)

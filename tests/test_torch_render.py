@@ -96,8 +96,6 @@ def test_block_fn_accumulates_iterations(tmp_path):
 @pytest.mark.parametrize("kw", [
     dict(cluster=True, pair_bdiag=True),  # the block-diagonal pair kernel
     {},  # an 80-triangle mesh is below cluster_min_tris: the KD walk
-    dict(cluster=True, cluster_pairs=False),  # cluster rounds
-    dict(cluster=True, cluster_pairs=False, cluster_binned=True),
     dict(compaction=True, **WALK),
     dict(material_sort=True, **WALK),
     dict(ray_cache=True, **WALK),
