@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's eleven CUDA kernels from ``kdtreepathtraceroptimization_tpu_
-torch/csrc`` (one nvcc per source, in parallel) and drives its five mesh
-render paths and its gradient path on Cornell + an 81,920-triangle
-icosphere at 800x800:
+Builds the port's twelve CUDA kernels (eleven sources) from
+``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per source, in
+parallel) and the native KD builder (g++), and drives its mesh render
+paths (pair list with either pair kernel, walk, cluster rounds, binned,
+KD walk, brute force) and its gradient path on Cornell + an
+81,920-triangle icosphere at 800x800:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
-   the kernels' build (time, registers and shared memory per kernel);
+   the kernels' build (time, registers, spills and shared memory per
+   kernel);
 2. each kernel against its plain PyTorch version, on the inputs a main
    path hands it at its second bounce: slab cull, walk and gather-to-
    columns from the walk path (slab cull and gather bit for bit, walk ids
@@ -21,7 +24,11 @@ icosphere at 800x800:
 3. the pair list against the brute-force kernel on every ray of that
    bounce (640,000 rays x 131,072 triangle slots): ids on >= 99.99% of
    rays, t within 2^-12 relative (the pair list reports t truncated by
-   its packed key, by < 2^-13);
+   its packed key, by < 2^-13); ``[bdiag]``: kernel 7 on the pairs the
+   ``pair_bdiag`` path's second bounce hands it (1024-pair supertiles)
+   against kernel 6 on the same pairs (packed keys bit for bit) and its
+   plain version (kernel 6's tolerance), and that path's pair list
+   against the brute-force kernel on every ray;
 4. ``[cluster]``: kernels 9-12 against their plain versions on the inputs
    the cluster-rounds and binned paths hand them at their second bounce
    (sphere cull and argmin bins bit for bit; rounds ids on >= 99.99% of
@@ -30,18 +37,29 @@ icosphere at 800x800:
    brute-force kernel on every ray of that bounce (ids on >= 99.99%, t
    within 1e-5 relative), with the flagged-ray count and the repair;
 5. golden parity: ``cornell_64``, ``mesh_pairs_48`` in its own (pair)
-   config and in walk, cluster-rounds and binned config, against the JAX
-   package's goldens;
+   config and in walk, cluster-rounds and binned config, ``mesh_kd_48``
+   (the KD walk in the default config), against the JAX package's
+   goldens;
+5b. ``[kd]``: the native and numpy KD builds of the 81,920-triangle mesh
+   (seconds, tree statistics), and the KD walk (``cluster_auto=False``)
+   against the brute-force kernel on every ray of the second bounce, as
+   source-mesh triangle ids (>= 99.99%) with t within 1e-4 relative (the
+   JAX package's KD-vs-brute bound: the walk's Moller-Trumbore and kernel
+   8's determinant form round differently at grazing hits);
 6. the main paths, each with every launch count zeroed just before and
    read just after: the pair path (the default config), the walk, the
-   cluster-rounds and the binned paths at depth 8, each with
+   cluster-rounds and the binned paths at depth 8, the pair path with
+   ``pair_bdiag`` (its image equal to the default pair path's), each with
    ms/iteration, rays/s, peak memory and a profile (a path slower than
    2 s an iteration is timed as one call of one iteration), and for the
    last two the flagged rays and the repair of every bounce; a short
    cluster-rounds render with 4 rounds at depth 2, so that the sweep
    launches on a render whether or not 64 rounds ever flag; a short
-   ``enable_kd=False`` render through the brute-force kernel. Every
-   kernel must launch on some path, and every image must be finite and
+   ``enable_kd=False`` render through the brute-force kernel; the KD
+   walk in the default config on a 320-triangle icosphere at depth 8, and
+   with ``cluster_auto=False`` on the 81,920 triangles at depth 2 (one
+   call), each with its steps and host reads per bounce. Every kernel
+   must launch on some path, and every image must be finite and
    non-black;
 7. ``[train]``: 12 steps of ``make_train_step`` on the pair path at depth
    8 from halved material colours towards the port's render of the true
@@ -79,6 +97,9 @@ import numpy as np
 import torch
 
 from kdtreepathtraceroptimization_tpu_torch import make_train_step, render_loss
+from kdtreepathtraceroptimization_tpu_torch.accel import kdtree as tkd
+from kdtreepathtraceroptimization_tpu_torch.accel.kdtools import tree_stats
+from kdtreepathtraceroptimization_tpu_torch.accel.native import GXX_FLAGS, load_native
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
 from kdtreepathtraceroptimization_tpu_torch.convert import materials_to_torch, with_tris
 from kdtreepathtraceroptimization_tpu_torch.ops import binned as tbinned
@@ -86,6 +107,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import cluster as tcl
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf as tmxu
 from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
+from kdtreepathtraceroptimization_tpu_torch.ops import traverse as ttrav
 from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.ops.camera import generate_rays
 from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
@@ -109,6 +131,8 @@ WALK = dict(cluster=True, cluster_walk=True, cluster_pairs=False)
 PAIRS = dict(cluster=True, cluster_pairs=True)  # the default config
 CLUSTER = dict(cluster=True, cluster_pairs=False)  # cluster rounds
 BINNED = dict(cluster=True, cluster_pairs=False, cluster_binned=True)
+BDIAG = dict(cluster=True, cluster_pairs=True, pair_bdiag=True)  # kernel 7's pair path
+KD = dict(cluster_auto=False)  # no cluster intersector: the KD walk on any mesh
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
 # bandwidth and float32 outside the tensor cores.
@@ -160,6 +184,8 @@ KERNELS = (
      "kdtreepathtraceroptimization_tpu/ops/pairs.py:149"),
     ("pair_runs", tpairs.PAIR_RUNS, "kdtreepathtraceroptimization_tpu_torch/csrc/pair_runs.cu",
      "kdtreepathtraceroptimization_tpu/ops/pairs.py:351"),
+    ("pair_bdiag", tpairs.PAIR_BDIAG, "kdtreepathtraceroptimization_tpu_torch/csrc/pair_bdiag.cu",
+     "kdtreepathtraceroptimization_tpu/ops/pairs.py:447"),
     ("mxu_bf", tmxu.BF, "kdtreepathtraceroptimization_tpu_torch/csrc/mxu_bf.cu",
      "kdtreepathtraceroptimization_tpu/ops/mxu_bf.py:187"),
     ("cluster_cull", tcl.CULL, "kdtreepathtraceroptimization_tpu_torch/csrc/cluster_cull.cu",
@@ -175,8 +201,11 @@ KERNELS = (
 # the cluster path's if it launched there, else the 4-round render's).
 RECORD_PATH = {"slab_cull": "walk", "walk": "walk", "gather_cols": "pairs",
                "scatter_cols": "geomgrad", "pair_extract": "pairs", "pair_runs": "pairs",
+               "pair_bdiag": "pairs_bdiag",
                "mxu_bf": "brute", "cluster_cull": "cluster", "cluster_rounds": "cluster",
                "cluster_sweep": "cluster", "binned_argmin": "binned"}
+# Each main path's image and its iteration count (phase_main_path).
+IMAGES = {}
 # The cluster table's triangle tables that the gradient phases differentiate.
 TRI_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2")
 # The subsurface transmittance [geomgrad] gives the icosphere's material
@@ -270,8 +299,8 @@ class Recorder:
 
 class RepairStats:
     """Keeps the ``collect_stats`` record of every call the integrator makes
-    to one intersector (``intersect_mesh_cluster`` or
-    ``intersect_mesh_binned``) while the block runs; restores it on exit."""
+    to one intersector (``intersect_mesh_cluster``, ``intersect_mesh_binned``
+    or ``intersect_mesh_kd``) while the block runs; restores it on exit."""
 
     def __init__(self, name: str):
         self.name = name
@@ -299,6 +328,13 @@ class RepairStats:
             out.append(f"bounce {b}: flagged {[c['flagged'] for c in calls]}, repair "
                        f"{sorted(set(c['repair'] for c in calls))}")
         return "; ".join(out)
+
+    def walk_per_bounce(self, depth: int) -> str:
+        """The KD walk's steps and host reads of each bounce, over the
+        iterations."""
+        return "; ".join(
+            f"bounce {b}: steps {[c['steps'] for c in self.calls[b::depth]]}, host reads "
+            f"{[c['host_reads'] for c in self.calls[b::depth]]}" for b in range(depth))
 
 
 def check_hits(label, got, want):
@@ -745,6 +781,124 @@ def phase_cluster(scene, device) -> dict:
     return results
 
 
+def phase_bdiag(scene, device) -> dict:
+    """Kernel 7 on the pairs the pair_bdiag path hands it at its second
+    bounce (1024-pair supertiles): bit for bit against kernel 6 on the
+    same pairs, and against its plain version with kernel 6's tolerance;
+    that bounce's pair list against the brute-force kernel on every ray."""
+    use_full_f32()
+    args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **BDIAG),
+                               "intersect_mesh_pairs", device)
+    with Recorder(tpairs, "pair_bdiag", 0) as rb:
+        hit, stats = tpairs.intersect_mesh_pairs(*args, **kwargs, collect_stats=True)
+    sync(device)
+    log(f"[bdiag] bounce 1 stats: {stats}")
+    brute_check("[bdiag] pair list (pair_bdiag)", hit, args, kwargs, 2.0 ** -12)
+    blk_s, featp, w, block, ptile, kreal = rb.args
+    got = tpairs.pair_bdiag(blk_s, featp, w, block, ptile, kreal)
+    k6 = tpairs.pair_runs(blk_s, featp, w, block, 256, kreal)
+    want = tpairs._pair_runs_ref(blk_s, featp, w, block, kreal)
+    sync(device)
+    real = blk_s < kreal
+    n_real = int(real.sum())
+    if not torch.equal(got, k6):
+        raise AssertionError(f"pair_bdiag differs from pair_runs on {int((got != k6).sum())} "
+                             f"of {blk_s.shape[0]} pairs")
+    tg, lg = tpairs._unpack_tl(got)
+    tw, lw = tpairs._unpack_tl(want)
+    loc_eq = (lg == lw)[real].float().mean().item()
+    both = real & (tg < 1e30) & (tw < 1e30)
+    rel = ((tg - tw).abs() / tw.abs().clamp_min(1e-30))[both]
+    rel_max = rel.max().item() if rel.numel() else 0.0
+    # runs per supertile and the rounds kernel 7 takes for them
+    slots = tpairs.PAIR_BDIAG.call_int("pair_bdiag_slots", block, cuda_build.MAX_SMEM)
+    tiles = blk_s.reshape(-1, ptile)
+    starts = torch.ones_like(tiles, dtype=torch.bool)
+    starts[:, 1:] = tiles[:, 1:] != tiles[:, :-1]
+    runs = (starts & (tiles < kreal)).sum(dim=1)
+    busy = runs > 0
+    log(f"[bdiag] pair_bdiag == pair_runs bit for bit on all {blk_s.shape[0]} pairs ({n_real} "
+        f"real); against the plain version: packed equal on "
+        f"{(got == want)[real].float().mean().item():.6%} of real pairs, loc on {loc_eq:.6%}, "
+        f"max |dt|/t {rel_max:.3g}")
+    log(f"[bdiag] {int(busy.sum())} of {tiles.shape[0]} supertiles hold real pairs: runs per "
+        f"such tile mean {runs[busy].float().mean().item():.2f}, max {int(runs.max())}; "
+        f"{slots} weight slots a round, rounds per tile max {-(-int(runs.max()) // slots)}")
+    if (got[~real] != tpairs._PBIG).any():
+        raise AssertionError("pair_bdiag: a sentinel pair was not left at _PBIG")
+    if loc_eq < 0.9999 or rel_max > 2.0 ** -12:
+        raise AssertionError("pair_bdiag differs from its plain version beyond its tolerance")
+    blocks_used = int(torch.unique(blk_s[real]).numel())
+    nbytes = (blk_s.numel() + featp.numel() + got.numel()
+              + blocks_used * 16 * 4 * block) * 4
+    pair_tests = int(real_tris_per_block(args[2])[blk_s[real].long()].sum())
+    res = dict(
+        max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
+        ms=time_ms(lambda: tpairs.pair_bdiag(blk_s, featp, w, block, ptile, kreal), 20),
+        plain_ms=time_ms(lambda: tpairs._pair_runs_ref(blk_s, featp, w, block, kreal), 3),
+        library_ms=None, **bound(nbytes, pair_tests * MT_OPS_PER_TEST),
+        shape=f"{blk_s.shape[0]} pairs ({n_real} real, {blocks_used} blocks) in supertiles of "
+              f"{ptile}, blocks of {block} slots, {pair_tests} (real pair, real triangle) tests")
+    k6_ms = time_ms(lambda: tpairs.pair_runs(blk_s, featp, w, block, 256, kreal), 20)
+    log(f"[kernels] pair_bdiag: {res['shape']}; kernel {res['ms']:.4f} ms (pair_runs on the same "
+        f"pairs in tiles of 256: {k6_ms:.4f} ms), plain {res['plain_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    log("[kernels] library_ms is null for pair_bdiag: no one PyTorch call computes a masked "
+        "first-minimum over each pair's own block")
+    return res
+
+
+def phase_kd(scene, device) -> None:
+    """The KD builds of the main mesh (native and numpy, seconds and
+    statistics; their arrays equal), and the KD walk against the
+    brute-force kernel on every ray of the cluster_auto=False path's
+    second bounce, as source-mesh triangle ids."""
+    mesh = scene.mesh
+    host = [getattr(mesh, f).cpu().numpy() for f in ("v0", "v1", "v2", "n0", "n1", "n2",
+                                                        "material_id")]
+    if load_native() is None:
+        raise AssertionError("[kd] the native KD builder did not build (g++ missing?)")
+    builds = {}
+    for backend in ("native", "numpy"):
+        t = time.perf_counter()
+        builds[backend] = tkd.build_kdtree(*host, leaf_size=32, inline_cap=32, backend=backend)
+        log(f"[kd] {backend} KD build of {host[0].shape[0]} triangles (leaf size 32): "
+            f"{time.perf_counter() - t:.3f} s")
+    if not (np.array_equal(builds["native"].fat.rows, builds["numpy"].fat.rows)
+            and np.array_equal(builds["native"].tris.orig_index, builds["numpy"].tris.orig_index)):
+        raise AssertionError("[kd] the native and numpy KD builds differ")
+    log(f"[kd] tree: {tree_stats(builds['native'])}; fat rows {builds['native'].fat.rows.shape}, "
+        f"octant table {'built' if builds['native'].oct is not None else 'not built (over cap)'}")
+
+    args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **KD),
+                               "intersect_mesh_kd", device)
+    origin, direction, kd = args[0], args[1], args[2]
+    (hit, stats), ms = timed(lambda: ttrav.intersect_mesh_kd(*args, **kwargs, collect_stats=True),
+                             device)
+    t_init, active = kwargs["t_init"], kwargs["active"]
+    log(f"[kd] bounce 1: {origin.shape[0]} rays ({int(active.sum())} active), {ms:.1f} ms, "
+        f"{stats}")
+    d_live = torch.where(active[:, None], direction, 0.0)  # dead rays never hit
+    hb = tmxu.intersect_brute_mxu(origin, d_live, mesh.v0, mesh.v1, mesh.v2, t_max=t_init)
+    src = torch.where(hit.tri >= 0, kd.tris.orig_index[hit.tri.clamp_min(0).long()], -1)
+    sync(device)
+    frac = (src == hb.tri).float().mean().item()
+    both = (hb.tri >= 0) & (hit.tri >= 0)
+    rel = ((hit.t - hb.t).abs() / hb.t.abs().clamp_min(1e-30))[both]
+    rel_max = rel.max().item() if rel.numel() else 0.0
+    # t: the walk's Moller-Trumbore (a reciprocal of the determinant times
+    # a dot product) and kernel 8's quotient of two dot products round
+    # differently, by more where the determinant is small (grazing hits);
+    # 1e-4 relative is the JAX package's own KD-vs-brute bound
+    # (tests/test_kdtree.py).
+    log(f"[kd] KD walk vs brute-force kernel on all {origin.shape[0]} rays of bounce 1 x "
+        f"{mesh.v0.shape[0]} triangles: {int((hb.tri >= 0).sum())} hits; source ids equal on "
+        f"{frac:.6%}; max |dt|/t {rel_max:.3g} where both hit, {int((rel > 1e-5).sum())} "
+        f"beyond 1e-5 (bound 1e-4)")
+    if frac < 0.9999 or rel_max > 1e-4:
+        raise AssertionError("[kd] the KD walk differs from the brute force on this bounce")
+
+
 def phase_goldens(device):
     """The JAX package's committed goldens, rendered by the port."""
     scene = with_resolution(load_scene(CORNELL, device=device), 64, 64)
@@ -783,15 +937,31 @@ def phase_goldens(device):
             raise AssertionError(f"mesh_pairs_48 ({label}) differs from its golden beyond "
                                  f"mean 1e-2")
 
+    # the KD golden: icosphere-2 (320 triangles) in the default config
+    scene = mesh_scene(2, 2.0, 48, device)
+    config = RenderConfig(trace_depth=4, enable_kd=True)
+    route = tint.mesh_route(scene.mesh, scene.cmesh, config, scene.kd)
+    img = render(scene, config, spp=8, seed=0, device=device).cpu().numpy()
+    d = np.abs(img - np.load(os.path.join(GOLDENS, "mesh_kd_48.npy")))
+    off = np.flatnonzero((d > 2e-3).any(axis=-1))
+    log(f"[golden] mesh_kd_48 (route {route}): max |d| {d.max():.3g}, mean |d| {d.mean():.3g}; "
+        f"{off.size} pixels beyond atol 2e-3 ({', '.join(str(i) for i in off)}) (bound: no "
+        f"pixel but {JIT_BRANCHED_PIXELS}, mean 2e-4)")
+    if route != "kd" or not set(off.tolist()) <= set(JIT_BRANCHED_PIXELS) or d.mean() > 2e-4:
+        raise AssertionError("mesh_kd_48 differs from its golden beyond its bound")
+
 
 def phase_main_path(name, scene, config, device, expect, block: int = 2,
-                    timed_calls: int = 3, profile: bool = True, repair: str = None) -> dict:
+                    timed_calls: int = 3, profile: bool = True, repair: str = None,
+                    absent=()) -> dict:
     """One render path at full size; every launch count is zeroed just
     before it and read just after. ``expect`` names the kernels that
-    must launch on it; ``repair`` names the integrator's intersector whose
-    flagged rays and repair of every bounce the path reports. A path whose
-    warm-up takes more than SLOW_ITERATION_MS an iteration is timed as one
-    call of one iteration."""
+    must launch on it, ``absent`` those that must not; ``repair`` names the
+    integrator's intersector whose flagged rays and repair (or, for the
+    KD walk, steps and host reads) of every bounce the path reports. A
+    path whose warm-up takes more than SLOW_ITERATION_MS an iteration is
+    timed as one call of one iteration. The image and its iteration count
+    go into IMAGES[name]."""
     res = int(scene.camera.resolution[0])
     n = res * res
     step = make_render_block_fn(scene, config, block, device=device)
@@ -830,18 +1000,27 @@ def phase_main_path(name, scene, config, device, expect, block: int = 2,
         f"{', '.join(f'{v:.2f}' for v in per_iter)}), "
         f"{n * depth / (ms / 1e3):.4g} rays/s, peak memory {peak / 2**20:.1f} MiB")
     log(f"[main:{name}] launches over {iters} iterations: {launches}")
-    if name == "pairs":
+    if name.startswith("pairs"):
         # each _compact_all reads a set size on the host; each bounce also
         # reads whether any ray is left for pass 3
         log(f"[main:{name}] host reads per iteration: "
             f"{(reads.calls + depth * iters) / iters:.1f}")
-    if stats is not None:
+    if stats is not None and repair == "intersect_mesh_kd":
+        reads_it = sum(c["host_reads"] for c in stats.calls) / iters
+        log(f"[main:{name}] host reads per iteration: {reads_it:.1f} (the walk's loop "
+            f"condition, once per {config.traversal_unroll} steps)")
+        log(f"[main:{name}] over {iters} iterations, {stats.walk_per_bounce(depth)}")
+    elif stats is not None:
         # each call reads its flagged-ray count on the host
         log(f"[main:{name}] host reads per iteration: {len(stats.calls) / iters:.1f}")
         log(f"[main:{name}] over {iters} iterations, {stats.per_bounce(depth)}")
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         raise AssertionError(f"{missing} not launched on the {name} path: {launches}")
+    stray = [k for k in absent if launches[k]]
+    if stray:
+        raise AssertionError(f"{stray} launched on the {name} path: {launches}")
+    IMAGES[name] = (img, iters)
     if not torch.isfinite(img).all():
         raise AssertionError(f"the {name} image has non-finite values")
     if not img.mean().item() > 0:
@@ -1122,12 +1301,17 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     t = time.perf_counter()
     logs = cuda_build.build_all()
-    log(f"[build] {len(logs)} kernels built in {time.perf_counter() - t:.1f} s "
+    log(f"[build] {len(logs)} kernel sources built in {time.perf_counter() - t:.1f} s "
         f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {line.strip()}")
+    t = time.perf_counter()
+    if load_native() is None:
+        raise AssertionError("the native KD builder did not build (g++ missing?)")
+    log(f"[build] native KD builder loaded in {time.perf_counter() - t:.1f} s "
+        f"(g++ {' '.join(GXX_FLAGS)})")
 
     device = torch.device("cuda", torch.cuda.current_device())
     start = time.perf_counter()
@@ -1142,10 +1326,17 @@ def main() -> int:
     pair_results, _ = phase_pairs(scene, device)
     results.update(pair_results)
     phase_done("pairs")
+    results["pair_bdiag"] = phase_bdiag(scene, device)
+    phase_done("bdiag")
     results.update(phase_cluster(scene, device))
     phase_done("cluster")
     phase_goldens(device)
     phase_done("goldens")
+    phase_kd(scene, device)
+    phase_done("kd")
+    small = mesh_scene(2, 2.5, 800, device)  # 320 triangles: the default config's KD walk
+    if tint.mesh_route(small.mesh, small.cmesh, RenderConfig(), small.kd) != "kd":
+        raise AssertionError("the default config does not route a 320-triangle mesh to the KD walk")
     paths = {
         "pairs": phase_main_path("pairs", scene, RenderConfig(trace_depth=8, antialias=True),
                                  device, ("pair_extract", "pair_runs", "gather_cols")),
@@ -1171,7 +1362,26 @@ def main() -> int:
                                               cluster_auto=False),
                                  device, ("mxu_bf", "gather_cols"), block=1,
                                  timed_calls=1, profile=False),
+        "pairs_bdiag": phase_main_path("pairs_bdiag", scene,
+                                       RenderConfig(trace_depth=8, antialias=True,
+                                                    pair_bdiag=True),
+                                       device, ("pair_extract", "pair_bdiag", "gather_cols"),
+                                       absent=("pair_runs",)),
+        "kd": phase_main_path("kd", small, RenderConfig(trace_depth=8, antialias=True),
+                              device, ("gather_cols",), repair="intersect_mesh_kd",
+                              absent=("pair_extract", "pair_runs", "mxu_bf", "walk")),
+        "kd_big": phase_main_path("kd_big", scene,
+                                  RenderConfig(trace_depth=2, antialias=True, **KD), device,
+                                  ("gather_cols",), block=1, timed_calls=1, profile=False,
+                                  repair="intersect_mesh_kd",
+                                  absent=("pair_extract", "pair_runs", "mxu_bf", "walk")),
     }
+    (img_b, it_b), (img_p, it_p) = IMAGES["pairs_bdiag"], IMAGES["pairs"]
+    d = (img_b - img_p).abs().max().item()
+    log(f"[main:pairs_bdiag] image against the default pair path's (same seed, {it_b} and "
+        f"{it_p} iterations): max |d| {d:.3g}")
+    if it_b != it_p or d != 0.0:
+        raise AssertionError("the pair_bdiag image differs from the default pair path's")
     phase_done("main paths")
     record_path = dict(RECORD_PATH)
     if not paths["cluster"]["cluster_sweep"]:

@@ -3,10 +3,10 @@
 ``scene_from_numpy`` takes a ``SceneData`` of either package — the JAX
 package's with its leaves turned into numpy arrays (``jax.tree.map(
 np.asarray, scene)``), or the port's own — and returns the port's
-``SceneData`` with the mesh and cluster tables as tensors on ``device``
-and the small tables (camera, geoms, materials) as numpy on the host.
-The JAX scene's KD table, if any, is not carried: the port has no KD
-intersector yet.
+``SceneData`` with the mesh, KD and cluster tables as tensors on
+``device`` and the small tables (camera, geoms, materials) as numpy on
+the host. Each table with triangles gets its [T, 19] record
+(``ops.mesh.pack_tris``) there.
 
 For gradients, ``materials_to_torch`` carries a material table onto a
 device as tensors (optionally leaves that require grad) and
@@ -24,9 +24,14 @@ from kdtreepathtraceroptimization_tpu_torch.ops.cluster import ClusterMesh
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import pack_tris
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import (
     Camera,
+    FatRows,
     GeomSoA,
+    KDFlat,
+    KDNodes,
+    KDTris,
     MaterialSoA,
     MeshSoA,
+    OctantRows,
     RenderState,
     SceneData,
 )
@@ -39,6 +44,29 @@ def _host(a):
 
 def _mesh(mesh, device) -> MeshSoA:
     return MeshSoA(*(to_tensor(a, device) for a in mesh))
+
+
+def kd_to_device(kd, device) -> KDFlat:
+    """A KD table (numpy, or already tensors) as tensors on ``device``,
+    with its triangles' [T', 19] record."""
+    tris = KDTris(*(to_tensor(a, device) for a in kd.tris))
+    fat = oct_rows = None
+    if kd.fat is not None:
+        fat = FatRows(rows=to_tensor(kd.fat.rows, device), inline_cap=int(kd.fat.inline_cap))
+    if kd.oct is not None:
+        oct_rows = OctantRows(rows=to_tensor(kd.oct.rows, device),
+                              layout_size=int(kd.oct.layout_size),
+                              inline_cap=int(kd.oct.inline_cap))
+    return KDFlat(
+        nodes=KDNodes(*(to_tensor(a, device) for a in kd.nodes)),
+        tris=tris,
+        max_depth=int(kd.max_depth),
+        root_bbox_min=to_tensor(kd.root_bbox_min, device),
+        root_bbox_max=to_tensor(kd.root_bbox_max, device),
+        fat=fat,
+        oct=oct_rows,
+        packed=pack_tris(tris),
+    )
 
 
 def scene_from_numpy(scene, device) -> SceneData:
@@ -65,6 +93,7 @@ def scene_from_numpy(scene, device) -> SceneData:
         state=RenderState(int(state.iterations), int(state.trace_depth),
                           str(state.image_name)),
         mesh=None if scene.mesh is None else _mesh(scene.mesh, device),
+        kd=None if getattr(scene, "kd", None) is None else kd_to_device(scene.kd, device),
         cmesh=cmesh,
     )
 

@@ -35,7 +35,7 @@ def render_loss(materials: MaterialSoA, scene, config: RenderConfig,
     the render runs there."""
     radiance = trace_iteration(scene.geoms, materials, scene.mesh, scene.camera,
                                config, base_key, iteration, cmesh=scene.cmesh,
-                               device=target.device)
+                               device=target.device, kd=scene.kd)
     return torch.mean((radiance - target) ** 2)
 
 

@@ -122,7 +122,7 @@ def scatter(
 
     ior_eff = torch.where(
         is_inside, mat.index_of_refraction,
-        1.0 / torch.clamp_min(mat.index_of_refraction, 1e-6)
+        1.0 / vm.maximum(mat.index_of_refraction, 1e-6)
     )
     cos_nd = vm.dotv(normal_n, direction)
     k = 1.0 - ior_eff * ior_eff * (1.0 - cos_nd * cos_nd)

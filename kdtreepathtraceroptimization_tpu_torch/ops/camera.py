@@ -40,7 +40,7 @@ def _f32(a, device) -> torch.Tensor:
 
 
 def _normalize(a: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return a / torch.sqrt(torch.clamp_min(torch.sum(a * a, dim=-1, keepdim=True), eps))
+    return a / torch.sqrt(vm.maximum(torch.sum(a * a, dim=-1, keepdim=True), eps))
 
 
 def derive_camera(resolution, fov_y_deg, position, look_at, up,
@@ -82,7 +82,7 @@ def _spherical_state(camera: Camera, device=None):
     device = resolve_device(device)
     offset = _f32(camera.position, device) - _f32(camera.look_at, device)
     r = torch.sqrt(torch.sum(offset * offset) + 1e-12)
-    theta = torch.arccos(torch.clamp(offset[1] / r, -1.0, 1.0))
+    theta = torch.arccos(vm.clip(offset[1] / r, -1.0, 1.0))
     phi = torch.arctan2(offset[0], offset[2])
     return r, theta, phi
 
@@ -94,8 +94,8 @@ def orbit_camera(camera: Camera, d_phi: float = 0.0, d_theta: float = 0.0,
     poles."""
     device = resolve_device(device)
     r, theta, phi = _spherical_state(camera, device)
-    r = torch.clamp_min(r + d_zoom, 1e-3)
-    theta = torch.clamp(theta + d_theta, 1e-3, np.pi - 1e-3)
+    r = vm.maximum(r + d_zoom, 1e-3)
+    theta = vm.clip(theta + d_theta, 1e-3, np.pi - 1e-3)
     phi = phi + d_phi
     eye = _f32(camera.look_at, device) + r * torch.stack(
         [torch.sin(theta) * torch.sin(phi), torch.cos(theta),

@@ -42,8 +42,9 @@ import torch
 
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
-from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG, intersect_aabb
+from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit, pack_tris
+from kdtreepathtraceroptimization_tpu_torch.ops.traverse import _coherence_key
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA
 from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, CudaKernel, check_tensor
 from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, to_tensor
@@ -498,26 +499,6 @@ def _repair_merge(bt, btri, bt2, btri2):
 # ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
-
-
-def _coherence_key(origin, direction, active, root_min, root_max):
-    """Sort key (the JAX package's ``ops/traverse._coherence_key``), most
-    significant first: [inactive or missing the root box] [direction
-    octant] [4-bit-per-axis origin morton]."""
-    hit_root, _ = intersect_aabb(origin, direction, root_min, root_max)
-    octant = (
-        (direction[:, 0] >= 0).to(torch.int32)
-        + 2 * (direction[:, 1] >= 0).to(torch.int32)
-        + 4 * (direction[:, 2] >= 0).to(torch.int32)
-    )
-    span = torch.clamp_min(root_max - root_min, 1e-6)
-    q = torch.clamp(((origin - root_min) / span) * 15.0, 0.0, 15.0).to(torch.int32)
-    morton = torch.zeros_like(octant)
-    for b in range(4):
-        for a in range(3):
-            morton = morton | (((q[:, a] >> b) & 1) << (3 * b + a))
-    key = (octant << 12) | morton
-    return torch.where(active & hit_root, key, 1 << 20)
 
 
 def _pad_rays(origin, direction, cm: ClusterMesh, tile: int, t_init, active):

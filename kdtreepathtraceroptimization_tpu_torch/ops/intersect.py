@@ -134,7 +134,7 @@ def _sphere_test_g(qo: vm.V3, qd: vm.V3, tr, inv_t):
     v_dot_d = vm.dotv(qo, qd)
     radicand = v_dot_d * v_dot_d - (vm.dotv(qo, qo) - radius * radius)
     has_root = radicand >= 0
-    sq = torch.sqrt(torch.where(has_root, torch.clamp_min(radicand, 1e-12), 1.0))
+    sq = torch.sqrt(torch.where(has_root, vm.maximum(radicand, 1e-12), 1.0))
     sq = torch.where(has_root, sq, 0.0)
     t1 = -v_dot_d + sq
     t2 = -v_dot_d - sq

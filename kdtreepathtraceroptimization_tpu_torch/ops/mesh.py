@@ -119,7 +119,7 @@ def _refine_tri_hit_verts(origin, direction, v0, v1, v2):
     a = torch.sum(e1 * p, dim=-1)
     # |det| is clamped to 1e-6 (silhouette-grazing hits only).
     safe = torch.abs(a) > 1e-12
-    a_clamped = torch.where(a >= 0, 1.0, -1.0) * torch.clamp_min(torch.abs(a), 1e-6)
+    a_clamped = torch.where(a >= 0, 1.0, -1.0) * vm.maximum(torch.abs(a), 1e-6)
     f = 1.0 / torch.where(safe, a_clamped, 1.0)
     s = origin - v0
     u = f * torch.sum(s * p, dim=-1)
@@ -137,7 +137,7 @@ def _refine_tri_hit_verts_v(origin: vm.V3, direction: vm.V3,
     p = vm.crossv(direction, e2)
     a = vm.dotv(e1, p)
     safe = torch.abs(a) > 1e-12
-    a_clamped = torch.where(a >= 0, 1.0, -1.0) * torch.clamp_min(torch.abs(a), 1e-6)
+    a_clamped = torch.where(a >= 0, 1.0, -1.0) * vm.maximum(torch.abs(a), 1e-6)
     f = 1.0 / torch.where(safe, a_clamped, 1.0)
     s = origin - v0
     u = f * vm.dotv(s, p)

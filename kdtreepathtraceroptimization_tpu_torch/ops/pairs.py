@@ -1,8 +1,9 @@
 """Pair-list intersection: work scheduled per (ray, block) pair.
 
 The JAX package's ``ops/pairs.py`` in PyTorch, for one device, with its
-two TPU kernels ported to CUDA (``csrc/pair_extract.cu``,
-``csrc/pair_runs.cu``). A tile-shared walk (``ops/walk.py``) pays per
+three TPU kernels ported to CUDA (``csrc/pair_extract.cu``,
+``csrc/pair_runs.cu`` and, with ``pair_bdiag``, ``csrc/pair_bdiag.cu``).
+A tile-shared walk (``ops/walk.py``) pays per
 ray tile for the union of its rays' feasible blocks; this intersector
 pays per ray for its own nearest few:
 
@@ -13,6 +14,8 @@ pays per ray for its own nearest few:
      pairs side by side; one row gather fetches their feature records;
   3. test (kernel 6): per tile of sorted pairs, each same-block run
      against that block's triangles, nearest (t | loc) packed in one int;
+     with ``pair_bdiag``, kernel 7 computes the same on supertiles of
+     ``pair_bdiag_tile`` pairs, several runs at once;
   4. reduce: a scatter through the sort's permutation restores slot order
      and each ray keeps its nearest slot;
   5. prove: a ray is exact once its best t <= lb_over. Unproven rays get
@@ -47,6 +50,7 @@ _I = ctypes.c_int
 EXTRACT = CudaKernel("pair_extract", "pair_extract",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I])
 PAIR_RUNS = CudaKernel("pair_runs", "pair_runs", [_P, _P, _P, _P, _I, _I, _I, _I])
+PAIR_BDIAG = CudaKernel("pair_bdiag", "pair_bdiag", [_P, _P, _P, _P, _I, _I, _I, _I, _I])
 
 # Second-pass window depth and the pass-2 / pass-3 buffer sizes (the JAX
 # package's tuning on the cornell + dragon diffuse wave).
@@ -230,10 +234,40 @@ def pair_runs(blk_s, feat, w, block: int, ptile: int, kreal: int):
     return out
 
 
-def _pair_pass(ids, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int):
+def pair_bdiag(blk_s, feat, w, block: int, ptile: int, kreal: int):
+    """Packed nearest (t | loc) per pair on supertiles (kernel 7): the
+    function of ``pair_runs`` (its plain version is ``_pair_runs_ref``), a
+    thread block per ``ptile`` pairs (at most 1024, a multiple of 32)
+    testing several same-block runs at once. P must be a multiple of
+    ``ptile``."""
+    if feat.device.type == "cpu":
+        return _pair_runs_ref(blk_s, feat, w, block, kreal)
+    if feat.device.type != "cuda":
+        raise ValueError(f"pair_bdiag runs on CUDA or CPU tensors, not {feat.device}")
+    device = feat.device
+    p = blk_s.shape[0]
+    kp = w.shape[0]
+    if p % ptile or not 0 < ptile <= 1024 or ptile % 32 or block > 1 << _LOC_BITS:
+        raise ValueError(f"pair_bdiag: bad tile {ptile} / block {block} for {p} pairs")
+    slots = PAIR_BDIAG.call_int("pair_bdiag_slots", block, MAX_SMEM)
+    if slots < 1:
+        raise ValueError(f"pair_bdiag: a block of {block} triangles does not fit in shared memory")
+    check_tensor(blk_s, "blk_s", torch.int32, (p,), device)
+    check_tensor(feat, "feat", torch.float32, (p, 16), device)
+    check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
+    out = torch.empty((p,), dtype=torch.int32, device=device)
+    if p:
+        PAIR_BDIAG.launch(device, blk_s.data_ptr(), feat.data_ptr(), w.data_ptr(),
+                          out.data_ptr(), p, ptile, block, min(kreal, kp), slots)
+    return out
+
+
+def _pair_pass(ids, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int,
+               bdiag: bool = False):
     """Test every (ray, block) pair in ``ids`` [n, F] (kp = empty slot);
     return each ray's nearest (t [n], tri [n]) over them (BIG / -1 for
-    none). ``feat`` [n, 16] holds the rays' _feat16t records."""
+    none). ``feat`` [n, 16] holds the rays' _feat16t records; ``bdiag``
+    takes kernel 7 for the pair test in place of kernel 6."""
     n, F = ids.shape
     kp = cm.n_blocks
     p = n * F
@@ -246,7 +280,8 @@ def _pair_pass(ids, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int):
     # keys, with the permutation at hand.
     blk_s, src = torch.sort(flat, stable=True)
     featp = feat[torch.clamp_max(src // F, n - 1)]
-    packed = pair_runs(blk_s, featp, cm.w, cm.block, ptile, kreal)
+    runner = pair_bdiag if bdiag else pair_runs
+    packed = runner(blk_s, featp, cm.w, cm.block, ptile, kreal)
     slots = torch.empty_like(packed)
     slots[src] = packed
     t_p, loc_p = _unpack_tl(slots[:p].reshape(n, F))
@@ -330,16 +365,15 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
         raise NotImplementedError(
             "binned_shards != 1 (shard-local pair grouping) is not ported: "
             "the port runs on one device")
-    if config.pair_bdiag:
-        raise NotImplementedError(
-            "pair_bdiag=True (the block-diagonal pair kernel) is not ported yet")
     origin = vm.as_rows(origin)
     direction = vm.as_rows(direction)
     n = origin.shape[0]
     device = origin.device
     tile = config.cluster_tile
     F = config.pair_slots
-    ptile = config.pair_tile
+    bdiag = bool(config.pair_bdiag)
+    # The supertile is the pair tile of the whole call, chunk sizes too.
+    ptile = config.pair_bdiag_tile if bdiag else config.pair_tile
     kp = cm.n_blocks
     kreal = cm.n_real_blocks
 
@@ -368,7 +402,7 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
         live = iota1 < nr1 - k * m1
         ids_c = torch.where(live[:, None], _take_rows(ids, pos), kp)
         ft_c = _take_rows(feat, pos) * live.to(torch.float32)[:, None]
-        t1, tri1 = _pair_pass(ids_c, ft_c, cm, ptile, kreal)
+        t1, tri1 = _pair_pass(ids_c, ft_c, cm, ptile, kreal, bdiag)
         bt_pos = _take_rows(bt, pos)
         upd = live & (t1 <= bt_pos)
         bt, btri = _scatter_slice(
@@ -402,7 +436,7 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
             ids2, lbov2, cnt2, ft2 = extract(x2, cm.slab, cm.blk, F2)
             bt2g = torch.where(live, _take_rows(bt, pos), 0.0)
             ft2[:, 10] = bt2g  # the window's bound: the current best
-            t2, tri2 = _pair_pass(ids2[:, F:], ft2, cm, ptile, kreal)
+            t2, tri2 = _pair_pass(ids2[:, F:], ft2, cm, ptile, kreal, bdiag)
             upd = live & (t2 < bt2g)
             still = live & (lbov2 < torch.where(upd, t2, bt2g)) & (cnt2 > F2)
             bt, btri, hard = _scatter_slice(

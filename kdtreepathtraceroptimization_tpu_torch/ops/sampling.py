@@ -22,7 +22,7 @@ def cosine_hemisphere_v(normal: V3, u1, u2) -> V3:
     """Cosine-weighted hemisphere sample around ``normal``
     (calculateRandomDirectionInHemisphere, interactions.h:9-41)."""
     up = torch.sqrt(u1)  # cos(theta)
-    over = torch.sqrt(torch.clamp_min(1.0 - up * up, 0.0))  # sin(theta)
+    over = torch.sqrt(vm.maximum(1.0 - up * up, 0.0))  # sin(theta)
     around = u2 * TWO_PI
 
     # not_normal = first of ex/ey/ez whose |normal| component < 1/sqrt(3)
@@ -50,7 +50,7 @@ def rand_spherical_vec_v(angle: float, u1, u2) -> V3:
     """Random direction in a cone near (0,0,-1) of aperture ``angle``
     (randSphericalVec, interactions.h:67-83)."""
     theta = TWO_PI * u1
-    phi = torch.arccos(torch.clamp(angle * PI * u2 - 1.0, -1.0, 1.0))
+    phi = torch.arccos(vm.clip(angle * PI * u2 - 1.0, -1.0, 1.0))
     sp = torch.sin(phi)
     return V3(torch.cos(theta) * sp, torch.sin(theta) * sp, torch.cos(phi))
 
@@ -59,7 +59,7 @@ def rotate_cone_sample_v(direction: V3, v: V3) -> V3:
     """Rotate a near -z cone sample ``v`` so the cone axis lands on
     ``direction`` (interactions.h:213-217, 259-266); degenerate when
     ``direction`` is parallel to z."""
-    cosang = torch.clamp(-direction.z, -1.0 + 1e-6, 1.0 - 1e-6)
+    cosang = vm.clip(-direction.z, -1.0 + 1e-6, 1.0 - 1e-6)
     angle = torch.arccos(cosang)
     # cross((0,0,-1), dir) = (dir.y, -dir.x, 0)
     axis = V3(direction.y, -direction.x, torch.zeros_like(direction.x))
@@ -77,7 +77,7 @@ def uniform_sphere_v(u1, u2) -> V3:
     """Uniform direction on the sphere (the DoF rotation axis,
     pathtrace.cu:364-371)."""
     u = torch.cos(PI * u1)
-    s = torch.sqrt(torch.clamp_min(1.0 - u * u, 0.0))
+    s = torch.sqrt(vm.maximum(1.0 - u * u, 0.0))
     theta = TWO_PI * u2
     return V3(s * torch.cos(theta), s * torch.sin(theta), u)
 
@@ -87,6 +87,6 @@ def schlick_fresnel_v(incident: V3, normal: V3, ior):
     interactions.h:126-133)."""
     r = (1.0 - ior) / (1.0 + ior)
     r0 = r * r
-    c = 1.0 - torch.clamp(-vm.dotv(normal, incident), -1.0, 1.0)
+    c = 1.0 - vm.clip(-vm.dotv(normal, incident), -1.0, 1.0)
     c2 = c * c
     return r0 + (1.0 - r0) * (c * (c2 * c2))

@@ -38,7 +38,7 @@ def shade(
     light_color = color * mat.color * mat.emittance
 
     # Surface hit: additive blend factor by material class.
-    sd = torch.clamp(sdepth, 0.0, 1.0)
+    sd = vm.clip(sdepth, 0.0, 1.0)
     sss_amount = sd * sd
     t3 = mat.transmittance
     has_sss = (t3.x > 0.0) | (t3.y > 0.0) | (t3.z > 0.0)

@@ -84,13 +84,27 @@ def normv(a: V3):
     return torch.sqrt(dotv(a, a))
 
 
+def maximum(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """``jnp.maximum(x, lo)``: the same values as ``clamp_min``, and JAX's
+    gradient at a tie (half of it to ``x`` where ``x == lo``; ``clamp_min``
+    passes all of it)."""
+    return torch.maximum(x, x.new_full((), lo))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``, as ``minimum(maximum(x, lo), hi)``: the
+    same values as ``clamp``, and half the gradient at an exact bound, as
+    ``jax.grad`` gives."""
+    return torch.minimum(maximum(x, lo), x.new_full((), hi))
+
+
 def safe_normv(a: V3, eps: float = 1e-12):
     return torch.sqrt(dotv(a, a) + eps)
 
 
 def normalizev(a: V3, eps: float = 1e-12) -> V3:
     # sqrt + per-channel divide, as the JAX package does (not rsqrt).
-    n = torch.sqrt(torch.clamp_min(dotv(a, a), eps))
+    n = torch.sqrt(maximum(dotv(a, a), eps))
     return V3(a.x / n, a.y / n, a.z / n)
 
 
@@ -112,7 +126,7 @@ def refractv(incident: V3, n: V3, eta) -> V3:
     cosi = dotv(n, incident)
     k = 1.0 - eta * eta * (1.0 - cosi * cosi)
     tir = k < 0.0
-    k_safe = torch.clamp_min(k, 1e-12)
+    k_safe = maximum(k, 1e-12)
     out = incident * eta - n * (eta * cosi + torch.sqrt(k_safe))
     zero = torch.zeros_like(out.x)
     return wherev(tir, V3(zero, zero, zero), out)

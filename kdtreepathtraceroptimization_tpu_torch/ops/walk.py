@@ -4,7 +4,7 @@ The JAX package's ``ops/walk.py`` in PyTorch, with its two TPU kernels
 ported to CUDA (``csrc/slab_cull.cu``, ``csrc/walk.cu``). Per call:
 
   1. coherence sort: direction octant + origin morton
-     (``cluster._coherence_key``), stable, with the rank/permutation helpers
+     (``traverse._coherence_key``), stable, with the rank/permutation helpers
      of ``ops/binned.py``; dead rays and rays that miss the mesh's root box
      sort to the back;
   2. slab cull (kernel 1): [tiles, K] tile-min conservative AABB entry
@@ -32,6 +32,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
 from kdtreepathtraceroptimization_tpu_torch.ops.binned import _apply_perm, _bin_rank
 from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit
+from kdtreepathtraceroptimization_tpu_torch.ops.traverse import _coherence_key
 from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, CudaKernel, check_tensor
 
 _P = ctypes.c_void_p
@@ -202,7 +203,7 @@ def intersect_mesh_walk(origin, direction, cm: "cl.ClusterMesh", config,
     tile = min(config.cluster_tile, vmem_tile_cap(cm.slab.shape[1]))
     origin, direction, t0, act = cl._pad_rays(origin, direction, cm, tile, t_init, active)
 
-    key = cl._coherence_key(origin, direction, act, cm.root_min, cm.root_max)
+    key = _coherence_key(origin, direction, act, cm.root_min, cm.root_max)
     rank, perm = _bin_rank(key)
 
     direction = torch.where(act[:, None], direction, 0.0)

@@ -7,12 +7,15 @@ materials, draws the bounce's uniforms, scatters and shades; the bounce
 loop is a Python loop over a fixed-shape wavefront (finished lanes are
 masked, never removed), so lane i is pixel i throughout.
 
-Meshes take the pair-list intersector (``ops/pairs.py``, the default
-for a mesh with a cluster table), the exact cluster walk (``ops/walk.py``),
-the binned intersector (``ops/binned.py``), the cluster-rounds intersector
-(``ops/cluster.py``) or, with ``enable_kd=False``, a brute force
-(``ops/mxu_bf.py`` or ``ops/mesh.py``). The KD walk, the wavefront
-reorderings (compaction, material sort) and the ray cache raise
+Meshes take, as the JAX dispatch picks them: a cluster intersector when
+the scene has a cluster table and ``cluster`` is set or the mesh has at
+least ``cluster_min_tris`` triangles (``cluster_auto``) — the pair list
+(``ops/pairs.py``, the default), the exact cluster walk (``ops/walk.py``),
+the binned intersector (``ops/binned.py``) or cluster rounds
+(``ops/cluster.py``); else the KD walk (``ops/traverse.py``) when
+``enable_kd`` is set and the scene has a KD table; else a brute force
+(``ops/mxu_bf.py`` or ``ops/mesh.py``). The wavefront reorderings
+(compaction, material sort) and the ray cache raise
 ``NotImplementedError``. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 
@@ -41,14 +44,16 @@ from kdtreepathtraceroptimization_tpu_torch.ops.camera import RaySoA, generate_r
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import intersect_mesh_cluster
 from kdtreepathtraceroptimization_tpu_torch.ops.rng import Key, bounce_key, prng_key, uniform_cols
 from kdtreepathtraceroptimization_tpu_torch.ops.pairs import intersect_mesh_pairs
+from kdtreepathtraceroptimization_tpu_torch.ops.traverse import check_config as check_kd_config
+from kdtreepathtraceroptimization_tpu_torch.ops.traverse import intersect_mesh_kd
 from kdtreepathtraceroptimization_tpu_torch.ops.walk import intersect_mesh_walk
 from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, use_full_f32
 
 
-def mesh_route(mesh, cmesh, config: RenderConfig) -> Optional[str]:
+def mesh_route(mesh, cmesh, config: RenderConfig, kd=None) -> Optional[str]:
     """The mesh intersector ``config`` selects (the JAX dispatch): None
-    without a mesh, else "pairs", "walk", "binned", "cluster", "mxu" or
-    "brute"; raises for the KD walk, not ported yet."""
+    without a mesh, else "pairs", "walk", "binned", "cluster", "kd", "mxu"
+    or "brute"."""
     if mesh is None:
         return None
     use_cluster = cmesh is not None and (
@@ -64,10 +69,8 @@ def mesh_route(mesh, cmesh, config: RenderConfig) -> Optional[str]:
         if config.cluster_binned:
             return "binned"
         return "cluster"
-    if config.enable_kd:
-        raise NotImplementedError(
-            "the KD-tree intersector is not ported yet; give the scene a "
-            "cluster table and set cluster=True, or set enable_kd=False")
+    if config.enable_kd and kd is not None:
+        return "kd"
     return "mxu" if config.mxu_brute else "brute"
 
 
@@ -75,23 +78,26 @@ def _check_supported(scene, config: RenderConfig) -> None:
     """Raise for what this slice does not implement, before any work."""
     if config.ray_cache:
         raise NotImplementedError("ray_cache=True is not ported yet")
-    mesh_route(scene.mesh, scene.cmesh, config)
+    if mesh_route(scene.mesh, scene.cmesh, config, scene.kd) == "kd":
+        check_kd_config(config, scene.kd)
 
 
 def intersect_scene(origin, direction, geoms, mesh, config: RenderConfig,
-                    active=None, cmesh=None, mesh_packed=None) -> isect.Hit:
+                    active=None, cmesh=None, mesh_packed=None, kd=None) -> isect.Hit:
     """Nearest hit against analytic geoms + (optional) triangle mesh.
 
     Analytic geoms go first so their nearest t bounds the mesh search, and
     ``active`` lets finished lanes skip it (reference dispatch:
     pathtrace.cu:2483-2559). The brute-force routes need ``mesh_packed``,
     the mesh's [T, 19] record (``ops.mesh.pack_tris``), built once by the
-    caller; the cluster routes read ``cmesh.packed``. The mesh
+    caller; the cluster routes read ``cmesh.packed``, the KD route
+    ``kd.packed`` (the record of its leaf-duplicated triangles, which its
+    triangle ids index). The mesh
     intersectors run without a graph (the JAX package's ``stop_gradient``):
     gradients reach the mesh through ``packed``.
     """
     hit = isect.intersect_geoms(origin, direction, geoms)
-    route = mesh_route(mesh, cmesh, config)
+    route = mesh_route(mesh, cmesh, config, kd)
     if route is None:
         return hit
     origin = vm.as_rows(origin)
@@ -113,29 +119,35 @@ def intersect_scene(origin, direction, geoms, mesh, config: RenderConfig,
         elif route == "cluster":
             tri_hit = intersect_mesh_cluster(origin, direction, cmesh, config,
                                              t_init=t_init, active=active)
+        elif route == "kd":
+            tri_hit = intersect_mesh_kd(origin, direction, kd, config,
+                                        t_init=t_init, active=active)
         elif route == "mxu":
             tri_hit = mxu_bf.intersect_mesh_mxu(origin, direction, mesh, t_max=t_init)
         else:
             tri_hit = mesh_ops.intersect_mesh_brute(origin, direction, mesh,
                                                     use_bbox=config.use_bbox)
-    packed = mesh_packed if route in ("mxu", "brute") else cmesh.packed
+    if route in ("mxu", "brute"):
+        packed = mesh_packed
+    else:
+        packed = kd.packed if route == "kd" else cmesh.packed
     mesh_hit = mesh_ops.tri_hit_to_hit(origin, direction, tri_hit, packed)
     return isect._min_hit(hit, mesh_hit)
 
 
 def trace_iteration(geoms, materials, mesh, camera, config: RenderConfig,
                     base_key: Key, iteration: int, cmesh=None,
-                    device=None, mesh_packed=None) -> torch.Tensor:
+                    device=None, mesh_packed=None, kd=None) -> torch.Tensor:
     """One path-trace iteration -> per-pixel radiance [N, 3]."""
     rays = generate_rays(camera, config, bounce_key(base_key, iteration, 0),
                          config.effective_depth, device)
     return trace_rays(rays, geoms, materials, mesh, config, base_key,
-                      iteration, cmesh=cmesh, mesh_packed=mesh_packed)
+                      iteration, cmesh=cmesh, mesh_packed=mesh_packed, kd=kd)
 
 
 def trace_rays(rays: RaySoA, geoms, materials, mesh, config: RenderConfig,
                base_key: Key, iteration: int, cmesh=None,
-               mesh_packed=None) -> torch.Tensor:
+               mesh_packed=None, kd=None) -> torch.Tensor:
     """Trace a wavefront through the bounce loop -> radiance [N, 3]."""
     if config.compaction or config.material_sort:
         raise NotImplementedError("compaction and material_sort are not ported yet")
@@ -144,7 +156,7 @@ def trace_rays(rays: RaySoA, geoms, materials, mesh, config: RenderConfig,
         active = rays.remaining_bounces > 0
         hit = intersect_scene(rays.origin, rays.direction, geoms, mesh,
                               config, active=active, cmesh=cmesh,
-                              mesh_packed=mesh_packed)
+                              mesh_packed=mesh_packed, kd=kd)
         mat = bsdf.gather_materials(materials, hit.material_id)
         # Streams are keyed by pixel (reference: pathtrace.cu:62-66).
         u = uniform_cols(bounce_key(base_key, iteration, depth + 1), n, 8,
@@ -192,7 +204,7 @@ def make_render_block_fn(scene, config: RenderConfig, block: int,
     _check_supported(scene, config)
     scene = scene_from_numpy(scene, device)
     materials = materials_to_torch(scene.materials, device)
-    brute = mesh_route(scene.mesh, scene.cmesh, config) in ("mxu", "brute")
+    brute = mesh_route(scene.mesh, scene.cmesh, config, scene.kd) in ("mxu", "brute")
     mesh_packed = mesh_ops.pack_tris(scene.mesh) if brute else None
 
     @torch.no_grad()
@@ -201,7 +213,8 @@ def make_render_block_fn(scene, config: RenderConfig, block: int,
             film += trace_iteration(scene.geoms, materials, scene.mesh,
                                     scene.camera, config, base_key,
                                     int(start_iter) + i, cmesh=scene.cmesh,
-                                    device=device, mesh_packed=mesh_packed)
+                                    device=device, mesh_packed=mesh_packed,
+                                    kd=scene.kd)
         return film
 
     return step

@@ -3,8 +3,8 @@
 The port's copy of the JAX package's ``scene/parser.py``: the MATERIAL /
 OBJECT / CAMERA block format of scenes/*.txt (reference:
 src/scene.cpp:7-271), parsed in numpy into the same arrays. Only
-``load_scene`` differs: it builds no KD tree (the KD intersector is not
-ported yet) and puts the mesh and cluster tables on a device.
+``load_scene`` differs: it puts the mesh, KD and cluster tables on a
+device.
 
 Divergence from the reference (as in the JAX package): the camera basis
 is ``right = normalize(cross(view, up))``, ``up = cross(right, view)``
@@ -20,6 +20,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from kdtreepathtraceroptimization_tpu_torch.accel.kdtree import build_kdtree_from_mesh
 from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mesh
 from kdtreepathtraceroptimization_tpu_torch.ops.pairs import MAX_CLUSTER_BLOCKS
@@ -120,20 +121,21 @@ def load_scene(
     path: str,
     obj_path: Optional[str] = None,
     mtl_dir: Optional[str] = None,
-    build_kd: bool = False,
+    build_kd: bool = True,
+    leaf_size: int = 32,
+    max_depth: Optional[int] = None,
     build_cluster: bool = True,
     cluster_block: int = 256,
     device=None,
 ) -> SceneData:
-    """Load a reference-format scene file, optionally with an OBJ mesh and
-    its cluster table, onto ``device`` (the CUDA device by default).
+    """Load a reference-format scene file, optionally with an OBJ mesh, its
+    KD tree (``build_kd``, ``leaf_size``, ``max_depth``: the JAX package's
+    defaults) and its cluster table, onto ``device`` (the CUDA device by
+    default).
 
     OBJ materials are appended after the scene materials and triangle
     material ids offset accordingly (reference: scene.cpp:7-57, 579).
-    ``build_kd=True`` raises: the KD intersector is not ported yet.
     """
-    if build_kd:
-        raise NotImplementedError("KD-tree builds are not ported yet (build_kd=True)")
     device = resolve_device(device)
     with open(path, "r") as f:
         text = f.read()
@@ -143,6 +145,9 @@ def load_scene(
             obj_path, mtl_dir, material_offset=scene.materials.count
         )
         materials = concat_materials(scene.materials, obj_mats)
+        kd = None
+        if build_kd:
+            kd = build_kdtree_from_mesh(mesh, leaf_size=leaf_size, max_depth=max_depth)
         cmesh = None
         if build_cluster:
             # Meshes past the 13-bit block-id cap take bigger blocks: the
@@ -156,7 +161,7 @@ def load_scene(
                     cmesh = build_cluster_mesh(mesh, block=blk_size,
                                                device=device)
                     break
-        scene = scene._replace(mesh=mesh, materials=materials, cmesh=cmesh)
+        scene = scene._replace(mesh=mesh, materials=materials, kd=kd, cmesh=cmesh)
     return scene_from_numpy(scene, device)
 
 

@@ -10,9 +10,10 @@ package kept everything as pytrees, here the split is by size:
   small leaves concrete. Materials and the camera may also be tensors
   (``convert.materials_to_torch``, ``ops.camera.derive_camera``), which is
   how gradients reach them.
-- ``MeshSoA`` and the cluster table (``ops.cluster.ClusterMesh``) are
-  tensors on the render device once the scene is loaded or converted
-  (``convert.scene_from_numpy``); the loaders build them in numpy first.
+- ``MeshSoA``, the KD table (``KDFlat``) and the cluster table
+  (``ops.cluster.ClusterMesh``) are tensors on the render device once the
+  scene is loaded or converted (``convert.scene_from_numpy``); the loaders
+  and the KD build (``accel/kdtree.py``) make them in numpy first.
 """
 
 from __future__ import annotations
@@ -110,11 +111,104 @@ class RenderState(NamedTuple):
     image_name: str
 
 
+class KDNodes(NamedTuple):
+    """Flat KD node table in DFS pre-order (NodeBare analog,
+    KDnode.h:64-82): left child at id + 1, a skip link per node."""
+
+    axis: np.ndarray  # [M] int32, -1 = leaf
+    split_pos: np.ndarray  # [M] f32 (bbox center on axis; 0 for leaves)
+    bbox_min: np.ndarray  # [M, 3] f32
+    bbox_max: np.ndarray  # [M, 3] f32
+    left: np.ndarray  # [M] int32 (= id+1 for internal, -1 leaf)
+    right: np.ndarray  # [M] int32 (-1 if absent)
+    skip: np.ndarray  # [M] int32 pre-order escape link (M = done)
+    parent: np.ndarray  # [M] int32 (-1 for root)
+    tri_start: np.ndarray  # [M] int32 into the leaf-contiguous tri array
+    tri_count: np.ndarray  # [M] int32 (0 for internal nodes)
+
+    @property
+    def count(self) -> int:
+        return int(self.axis.shape[0])
+
+
+class KDTris(NamedTuple):
+    """Leaf-contiguous pre-gathered triangles (TriBare analog). A triangle
+    in several leaves appears once per leaf; each leaf's block is padded
+    to a multiple of the fat rows' inline cap with all-zero triangles."""
+
+    v0: np.ndarray  # [T', 3]
+    v1: np.ndarray
+    v2: np.ndarray
+    n0: np.ndarray
+    n1: np.ndarray
+    n2: np.ndarray
+    material_id: np.ndarray  # [T'] int32
+    orig_index: np.ndarray  # [T'] int32: index into the source mesh, -1 = pad
+
+    @property
+    def count(self) -> int:
+        return int(self.material_id.shape[0])
+
+
+class FatRows(NamedTuple):
+    """The traversal table: one f32 row per traversal step, node header and
+    up to ``inline_cap`` leaf triangles together; leaves with more chain
+    into continuation rows appended after the node rows.
+
+    Row layout (width 12 + 9 * inline_cap):
+      [0]     axis        (>= 0 internal; -1 leaf / continuation)
+      [1:4]   bbox_min    [4:7] bbox_max
+      [7]     skip        (pre-order escape; n_rows = done)
+      [8]     next        (internal: left child; leaf: continuation or -1)
+      [9]     right       (internal: right child; else -1)
+      [10]    tri_base    (KDTris index of inline slot 0)
+      [11]    inline_n    (valid inline slots, 0..inline_cap)
+      [12:]   inline tris, component-major: group g of inline_cap floats
+              holds component g (v0x v0y v0z v1x ... v2z) of every slot;
+              zero-padded (a degenerate triangle never hits)
+
+    Integer ids are stored as f32: exact up to 2^24 rows and triangles.
+    """
+
+    rows: np.ndarray  # [M', 12 + 9 * inline_cap] f32
+    inline_cap: int
+
+    @property
+    def count(self) -> int:
+        return int(self.rows.shape[0])
+
+
+class OctantRows(NamedTuple):
+    """Eight near-first pre-order layouts of the fat-row table, one per
+    ray-direction octant (children swapped so the near child is the
+    pre-order successor), so the stackless walk visits near subtrees
+    first. A ray enters at ``octant * layout_size``; links are absolute
+    into the [8 * M'] table and ``8 * layout_size`` is done."""
+
+    rows: np.ndarray  # [8 * M', 12 + 9 * cap] f32 (FatRows' layout)
+    layout_size: int  # M' (rows per octant layout)
+    inline_cap: int
+
+
+class KDFlat(NamedTuple):
+    """Everything the KD walk needs. ``packed`` is the [T', 19] record of
+    ``tris`` (``ops.mesh.pack_tris``), built when the table moves to a
+    device (``convert.scene_from_numpy``)."""
+
+    nodes: KDNodes
+    tris: KDTris
+    max_depth: int  # deepest level actually produced
+    root_bbox_min: np.ndarray  # [3]
+    root_bbox_max: np.ndarray  # [3]
+    fat: Optional[FatRows] = None
+    oct: Optional[OctantRows] = None
+    packed: Optional["torch.Tensor"] = None  # noqa: F821
+
+
 class SceneData(NamedTuple):
     """Everything loaded from a scene file + optional OBJ.
 
-    ``mesh`` / ``cmesh`` are None for analytic-only scenes. There is no KD
-    table: the KD intersector is not ported yet.
+    ``mesh`` / ``kd`` / ``cmesh`` are None for analytic-only scenes.
     """
 
     camera: Camera
@@ -122,4 +216,5 @@ class SceneData(NamedTuple):
     materials: MaterialSoA
     state: RenderState
     mesh: Optional[MeshSoA] = None
+    kd: Optional[KDFlat] = None
     cmesh: Optional["ClusterMesh"] = None  # noqa: F821 — ops.cluster

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("slab_cull", "walk", "gather_cols", "scatter_cols", "pair_extract", "pair_runs",
-           "mxu_bf", "cluster_cull", "cluster_rounds", "binned_argmin")
+           "pair_bdiag", "mxu_bf", "cluster_cull", "cluster_rounds", "binned_argmin")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -129,13 +129,14 @@ class CudaKernel:
                 f"{self._lib.error_string(err).decode()} (CUDA error {err})")
         self.launches += 1
 
-    def call_int(self, symbol: str) -> int:
-        """Read an ``int f(void)`` constant the library exports."""
+    def call_int(self, symbol: str, *args: int) -> int:
+        """Call an ``int f(int, ...)`` host function the library exports
+        (a constant, or one computed from ``args``)."""
         self._function()
         fn = getattr(self._lib, symbol)
-        fn.argtypes = []
+        fn.argtypes = [ctypes.c_int] * len(args)
         fn.restype = ctypes.c_int
-        return int(fn())
+        return int(fn(*args))
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

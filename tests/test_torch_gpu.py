@@ -8,7 +8,7 @@ tests cover the other shapes the wrappers accept: tiles whose staging
 needs more than 48 KB of shared memory, 64- to 1024-triangle blocks,
 tiles with empty feasible lists or only dead rays, 1 to 16 pair slots,
 block tables of 1024 to 8192 blocks, pair tiles that are all sentinel or
-split a run, triangle counts that are not a multiple of the brute
+split a run, pair supertiles of more runs than kernel 7 stages a round, triangle counts that are not a multiple of the brute
 force's block, as many rounds as blocks, a single tile, and bad
 arguments. Tolerances: slab cull, sphere cull, argmin bins, extraction
 and gather-to-columns bit for bit; walk, rounds, sweep and brute-force
@@ -33,6 +33,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
 from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mesh
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA
+from kdtreepathtraceroptimization_tpu_torch.utils import cuda_build
 from kdtreepathtraceroptimization_tpu_torch.utils.procmesh import icosphere
 
 pytestmark = pytest.mark.gpu
@@ -261,6 +262,128 @@ def test_pair_runs_kernel_matches_plain(cuda, block, ptile):
     assert bool(((tiles[1:, 0] == tiles[:-1, -1]) & (tiles[1:, 0] < cm.n_real_blocks)).any())
     assert bool((tiles[:, 0] >= cm.n_real_blocks).any())
     _check_packed(got, want, blk_s, cm.n_real_blocks)
+
+
+def _many_run_pairs(cm, ptile, runs_per_tile, seed):
+    """Block-sorted pairs: tile k of ``ptile`` pairs holds runs_per_tile[k]
+    runs of ascending block ids (each tile's last run goes on into the
+    next), then a tile half real and half sentinel, then a tile of
+    sentinels only; a ray per pair aimed at the centroid of a real
+    triangle of its block."""
+    rng = np.random.default_rng(seed)
+    kreal, kp, block, dev = cm.n_real_blocks, cm.n_blocks, cm.block, cm.w.device
+    tiles, b = [], 0
+    for runs in runs_per_tile:
+        cuts = np.sort(rng.choice(np.arange(1, ptile), runs - 1, replace=False))
+        tiles.append(np.repeat(np.arange(b, b + runs),
+                               np.diff(np.concatenate([[0], cuts, [ptile]]))))
+        b += runs - 1
+    half = ptile // 2
+    tiles.append(np.concatenate([np.full(half, b), np.full(half // 2, kreal),
+                                 np.full(ptile - half - half // 2, kp)]))
+    tiles.append(np.full(ptile, kp))
+    blk_s = np.concatenate(tiles).astype(np.int32)
+    assert b < kreal
+    # aim at real triangles only: a padding slot repeats a vertex, and rays
+    # through a vertex tie between the triangles that share it
+    t = cm.tris
+    real = ((t.v1 != t.v0).any(dim=1) | (t.v2 != t.v0).any(dim=1)).reshape(-1, block)
+    n_real = real.sum(dim=1).cpu().numpy()  # padding closes each block
+    bb = np.minimum(blk_s, kreal - 1)
+    tri = bb * block + (rng.random(blk_s.shape[0]) * n_real[bb]).astype(np.int64)
+    tri_t = torch.tensor(tri, device=dev)
+    cen = (t.v0[tri_t] + t.v1[tri_t] + t.v2[tri_t]) / 3.0 - cm.center_shift
+    o = 4.0 * cen
+    d = (cen - o) / (cen - o).norm(dim=1, keepdim=True)
+    n = blk_s.shape[0]
+    od = torch.cat([o, d, torch.full((n, 1), 40.0, device=dev), torch.ones((n, 1), device=dev)],
+                   dim=1)
+    return torch.tensor(blk_s, device=dev), tpairs._feat16t(od).contiguous()
+
+
+@pytest.mark.parametrize("block, ptile", [(64, 1024), (256, 1024), (1024, 1024), (256, 256),
+                                          (64, 64)])
+def test_pair_bdiag_kernel_matches_plain_and_pair_runs(cuda, block, ptile):
+    """Kernel 7 with 8 (block 64), 5 (256) and 1 (1024) weight slots a
+    round, on tiles of 1, 3, 8 and 13 runs (more runs than slots: several
+    rounds), runs that cross tiles, a half-sentinel and an all-sentinel
+    tile: against its plain version (the pair-test tolerance) and against
+    kernel 6 on the same pairs, bit for bit (the same arithmetic per
+    (pair, triangle))."""
+    cm = build_cluster_mesh(_mesh(5 if block < 1024 else 6), block=block, device=cuda)
+    runs = [1, 3, 8, min(13, ptile // 2)]
+    blk_s, featp = _many_run_pairs(cm, ptile, runs, seed=block + ptile)
+    slots = tpairs.PAIR_BDIAG.call_int("pair_bdiag_slots", block, cuda_build.MAX_SMEM)
+    assert slots == {64: 8, 256: 5, 1024: 1}[block]
+    before = tpairs.PAIR_BDIAG.launches
+    got = tpairs.pair_bdiag(blk_s, featp, cm.w, block, ptile, cm.n_real_blocks)
+    assert tpairs.PAIR_BDIAG.launches == before + 1
+    want = tpairs._pair_runs_ref(blk_s, featp, cm.w, block, cm.n_real_blocks)
+    _check_packed(got, want, blk_s, cm.n_real_blocks)
+    k6 = tpairs.pair_runs(blk_s, featp, cm.w, block, min(ptile, 256), cm.n_real_blocks)
+    assert torch.equal(got, k6)
+
+
+def test_pair_bdiag_checks_its_arguments(cuda):
+    cm = build_cluster_mesh(_mesh(3), block=64, device=cuda)
+    blk_s, featp = _many_run_pairs(cm, 256, [2], seed=0)
+    for ptile in (48, 2048, 512):  # not a multiple of 32; over 1024; 768 pairs in 512s
+        with pytest.raises(ValueError):
+            tpairs.pair_bdiag(blk_s, featp, cm.w, 64, ptile, cm.n_real_blocks)
+    with pytest.raises(ValueError):
+        tpairs.pair_bdiag(blk_s.long(), featp, cm.w, 64, 256, cm.n_real_blocks)
+    with pytest.raises(ValueError):
+        tpairs.pair_bdiag(blk_s, featp.double(), cm.w, 64, 256, cm.n_real_blocks)
+
+
+def test_pair_bdiag_intersector_on_cuda_matches_cpu(cuda):
+    """intersect_mesh_pairs with pair_bdiag, kernels against plain
+    versions, grazing rays on 8-triangle blocks (the exhaustive walk
+    runs)."""
+    mesh = _mesh(4)
+    rng = np.random.default_rng(2)
+    c = np.array([0.3, -0.2, 0.5])
+    u = rng.normal(size=(4096, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    w = rng.normal(size=(4096, 3))
+    w -= (w * u).sum(1, keepdims=True) * u
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    o = (c + 10.0 * u).astype(np.float32)
+    d = c + w * rng.uniform(1.9, 2.05, (4096, 1)) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    cfg = RenderConfig(cluster=True, cluster_tile=256, pair_slots=1, pair_bdiag=True)
+    before = tpairs.PAIR_BDIAG.launches
+    hits = [tpairs.intersect_mesh_pairs(torch.tensor(o, device=dev), torch.tensor(d, device=dev),
+                                        build_cluster_mesh(mesh, block=8, device=dev), cfg,
+                                        collect_stats=True)
+            for dev in (cuda, torch.device("cpu"))]
+    assert tpairs.PAIR_BDIAG.launches > before
+    assert hits[0][1]["pass3_rays"] > 0
+    assert torch.equal(hits[0][0].tri.cpu(), hits[1][0].tri)
+    torch.testing.assert_close(hits[0][0].t.cpu(), hits[1][0].t, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("octant_rows", [True, False])
+def test_kd_walk_on_cuda_matches_cpu(cuda, octant_rows):
+    """The KD walk is plain PyTorch: on the card it gives the CPU's
+    triangles (t within 1e-5 relative: the card's division and products
+    may round otherwise)."""
+    from kdtreepathtraceroptimization_tpu_torch.accel.kdtree import build_kdtree_from_mesh
+    from kdtreepathtraceroptimization_tpu_torch.convert import kd_to_device
+    from kdtreepathtraceroptimization_tpu_torch.ops.traverse import intersect_mesh_kd
+
+    kd = build_kdtree_from_mesh(_mesh(4), leaf_size=8)
+    rng = np.random.default_rng(3)
+    o = rng.normal(size=(8192, 3)).astype(np.float32) * 5.0
+    d = np.array([0.3, -0.2, 0.5], np.float32) + rng.normal(size=(8192, 3)).astype(np.float32) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    cfg = RenderConfig(octant_rows=octant_rows)
+    hits = [intersect_mesh_kd(torch.tensor(o, device=dev), torch.tensor(d, device=dev),
+                              kd_to_device(kd, dev), cfg)
+            for dev in (cuda, torch.device("cpu"))]
+    assert int((hits[1].tri >= 0).sum()) > 2000
+    assert (hits[0].tri.cpu() == hits[1].tri).float().mean().item() >= 0.999
+    torch.testing.assert_close(hits[0].t.cpu(), hits[1].t, rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("n_tris_subdiv, tri_block, ray_tile", [(3, 512, 1024), (4, 64, 256),

@@ -170,6 +170,120 @@ def test_pair_runs_plain_matches_pallas_interpret():
     np.testing.assert_array_equal(want, got)
 
 
+def _supertile_pairs(jcm, runs_per_tile, ptile, seed):
+    """Block-sorted pairs over whole tiles of ``ptile``: tile k holds
+    ``runs_per_tile[k]`` runs of ascending block ids (the last run of a
+    tile goes on into the next, which then starts mid-run), then a tile
+    half real and half sentinel ids (padding blocks kreal.., empty slots
+    kp) and a tile of sentinels only. Each pair's ray is aimed at a random
+    triangle of its block from four radii out, so most pairs hit. ->
+    (blk_s [P] i32, feat [P, 16] f32)."""
+    rng = np.random.default_rng(seed)
+    kreal, kp, block = jcm.n_real_blocks, jcm.n_blocks, jcm.block
+    tiles, b = [], 0
+    for k, runs in enumerate(runs_per_tile):
+        cuts = np.sort(rng.choice(np.arange(1, ptile), runs - 1, replace=False))
+        lens = np.diff(np.concatenate([[0], cuts, [ptile]]))
+        ids = np.repeat(np.arange(b, b + runs), lens)
+        tiles.append(ids)
+        b += runs - 1  # the next tile starts inside this tile's last run
+    half = ptile // 2
+    tiles.append(np.concatenate([np.full(half // 2, b), np.full(half - half // 2, b + 1),
+                                 np.full(half // 2, kreal), np.full(half - half // 2, kp)]))
+    tiles.append(np.full(ptile, kp))
+    blk_s = np.concatenate(tiles).astype(np.int32)
+    assert b + 1 < kreal and (np.diff(blk_s) >= 0).all()
+    n = blk_s.shape[0]
+    # real triangles only: a padding slot repeats a vertex, where triangles tie
+    t = jcm.tris
+    real = ((np.asarray(t.v1) != np.asarray(t.v0)).any(1)
+            | (np.asarray(t.v2) != np.asarray(t.v0)).any(1)).reshape(-1, block)
+    bb = np.minimum(blk_s, kreal - 1)
+    tri = bb * block + (rng.random(n) * real.sum(1)[bb]).astype(np.int64)
+    cen = ((np.asarray(t.v0)[tri] + np.asarray(t.v1)[tri] + np.asarray(t.v2)[tri]) / 3.0
+           - np.asarray(jcm.center_shift))  # the weight blocks' frame
+    o = 4.0 * cen
+    d = (cen - o) / np.linalg.norm(cen - o, axis=1, keepdims=True)
+    od = np.concatenate([o, d, rng.uniform(5.0, 40.0, (n, 1)), np.ones((n, 1))],
+                        axis=1).astype(np.float32)
+    return blk_s, np.asarray(jpairs._feat16t(jnp.asarray(od)))
+
+
+def test_pair_bdiag_plain_matches_jax_runs_kernel():
+    """Kernel 7's plain version on 1024-pair supertiles of 1, 3, 8 and 12
+    runs, runs that cross tiles, a sentinel tail and an all-sentinel tile:
+    packed keys bit for bit equal to the JAX runs kernel (kernel 6) in
+    interpret mode, to the port's kernel-6 wrapper and, in slot order, to
+    the JAX jnp mirror ``_pair_slots_ref``. (Not to the JAX bdiag kernel
+    in interpret mode: see the next test.)"""
+    mesh, jcm, tcm = _tables(4)
+    ptile, kreal = 1024, jcm.n_real_blocks
+    blk_s, feat = _supertile_pairs(jcm, [1, 3, 8, 12], ptile, seed=3)
+    got = tpairs.pair_bdiag(_t(blk_s), _t(feat), tcm.w, tcm.block, ptile, kreal).numpy()
+    want = np.asarray(jpairs._pair_runs_pallas(jnp.asarray(blk_s), jnp.asarray(feat), jcm.w,
+                                               jcm.block, ptile, kreal, True))
+    assert (want < tpairs._PBIG).mean() > 0.5
+    assert (got[blk_s >= kreal] == tpairs._PBIG).all()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, tpairs.pair_runs(_t(blk_s), _t(feat), tcm.w, tcm.block, 256, kreal).numpy())
+    t_s, loc_s = jpairs._pair_slots_ref(jnp.asarray(blk_s)[:, None], jnp.asarray(feat), jcm.w,
+                                        jcm.block, kreal)
+    t_g, loc_g = tpairs._unpack_tl(_t(got))
+    np.testing.assert_array_equal(np.asarray(t_s)[:, 0], t_g.numpy())
+    np.testing.assert_array_equal(np.asarray(loc_s)[:, 0], loc_g.numpy())
+
+
+def test_jax_bdiag_interpret_reads_unstaged_slots():
+    """A defect of the JAX package's kernel 7, shown here and left there:
+    ``_pair_bdiag_kernel`` multiplies all 8 weight slots of its stack and
+    relies on the slots it did not stage in a round being zero. In
+    interpret mode unwritten scratch is NaN, and 0 * NaN poisons every
+    row: a 256-pair tile (block 64) of 8 runs equals kernel 6, one of a
+    single run comes back all _PBIG although kernel 6 finds hits. The
+    port's kernel never reads a slot it did not stage."""
+    _, jcm, tcm = _tables(4)
+    kreal = jcm.n_real_blocks
+    for runs in (8, 1):
+        blk_s, feat = _supertile_pairs(jcm, [runs], 256, seed=runs)
+        blk_s, feat = blk_s[:256], feat[:256]
+        args = (jnp.asarray(blk_s), jnp.asarray(feat), jcm.w, jcm.block, 256, kreal, True)
+        runs_k = np.asarray(jpairs._pair_runs_pallas(*args))
+        bdiag_k = np.asarray(jpairs._pair_bdiag_pallas(*args))
+        assert (runs_k < tpairs._PBIG).sum() > 100
+        np.testing.assert_array_equal(
+            runs_k, tpairs.pair_bdiag(_t(blk_s), _t(feat), tcm.w, tcm.block, 256,
+                                      kreal).numpy())
+        if runs == 8:
+            np.testing.assert_array_equal(bdiag_k, runs_k)
+        else:
+            assert (bdiag_k == tpairs._PBIG).all()
+
+
+@pytest.mark.parametrize("F", [1, 3])
+def test_pairs_bdiag_match_jax_and_brute(F):
+    """intersect_mesh_pairs with pair_bdiag (1024-pair supertiles for the
+    whole call, narrowing chunks included) against the JAX package's with
+    the same config (its jnp mirror on the CPU) and the brute force: ids
+    equal, t within 1e-6 relative; and against the port's default pair
+    tile: the same hits. Grazing rays leave rays for the exhaustive walk
+    at F = 1."""
+    mesh, jcm, tcm = _tables(4, 4)
+    o, d = _grazing_rays(1024, seed=2)
+    kw = dict(cluster_tile=256, pair_slots=F, pair_bdiag=True, **PAIRS)
+    hit_t, stats = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(**kw),
+                                               collect_stats=True)
+    assert stats["m1"] == 1024
+    hit_j = jax.jit(lambda o, d: jpairs.intersect_mesh_pairs(o, d, jcm, JCfg(**kw)))(o, d)
+    np.testing.assert_array_equal(np.asarray(hit_j.tri), hit_t.tri.numpy())
+    np.testing.assert_allclose(np.asarray(hit_j.t), hit_t.t.numpy(), rtol=T_RTOL)
+    _brute_check(o, d, mesh, hit_t)
+    plain = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(**{**kw, "pair_bdiag": False}))
+    assert torch.equal(plain.tri, hit_t.tri) and torch.equal(plain.t, hit_t.t)
+    if F == 1:
+        assert stats["pass3_rays"] > 0
+
+
 def _brute_check(o, d, mesh, hit):
     hb = intersect_mesh_brute(o, d, jax.tree.map(jnp.asarray, mesh), use_bbox=False)
     t_p, t_b = hit.t.numpy(), np.asarray(hb.t)
@@ -253,7 +367,6 @@ def test_pairs_t_init_and_active_masking():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(pair_bdiag=True), "pair_bdiag"),
     (dict(binned_shards=4), "binned_shards"),
 ])
 def test_pairs_unported_options_raise(kw, match):

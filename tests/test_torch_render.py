@@ -16,6 +16,7 @@ from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
 from kdtreepathtraceroptimization_tpu_torch.render.film import tonemap_srgb_u8
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import (
     make_render_block_fn,
+    mesh_route,
     render,
 )
 from kdtreepathtraceroptimization_tpu_torch.ops.rng import prng_key
@@ -93,9 +94,24 @@ def test_block_fn_accumulates_iterations(tmp_path):
     assert (tmp_path / "img.png").stat().st_size > 0
 
 
+@pytest.mark.parametrize("kw, route", [
+    (dict(cluster=True, pair_bdiag=True), "pairs"),  # kernel 7 for the pair test
+    ({}, "kd"),  # an 80-triangle mesh is below cluster_min_tris: the KD walk
+    (dict(cluster_auto=False, cluster_pairs=False), "kd"),  # no cluster intersector
+])
+def test_formerly_unported_configs_render(tmp_path, kw, route):
+    """The routes the port gained with kernel 7 and the KD walk render a
+    finite, non-black image through the default entry point."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 1, 2.0), device="cpu"),
+        16, 16)
+    cfg = TCfg(trace_depth=2, cluster_tile=64, **kw)
+    assert mesh_route(scene.mesh, scene.cmesh, cfg, scene.kd) == route
+    img = render(scene, cfg, spp=1, device="cpu")
+    assert torch.isfinite(img).all() and img.mean() > 0
+
+
 @pytest.mark.parametrize("kw", [
-    dict(cluster=True, pair_bdiag=True),  # the block-diagonal pair kernel
-    {},  # an 80-triangle mesh is below cluster_min_tris: the KD walk
     dict(compaction=True, **WALK),
     dict(material_sort=True, **WALK),
     dict(ray_cache=True, **WALK),

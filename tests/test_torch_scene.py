@@ -1,8 +1,8 @@
 """The port's scene tables equal the JAX package's, bit for bit.
 
-Every array of ``load_scene`` (camera, geoms, materials, mesh and the
-cluster table, including its 512-block fallback) is compared exactly:
-both packages build them with the same numpy code.
+Every array of ``load_scene`` (camera, geoms, materials, mesh, the KD
+table and the cluster table, including its 512-block fallback) is
+compared exactly: both packages build them with the same numpy code.
 """
 
 import os
@@ -47,6 +47,18 @@ def assert_scene_equal(jscene, tscene):
                 assert a.dtype == b.dtype, (part, f, a.dtype, b.dtype)
                 np.testing.assert_array_equal(a, b, err_msg=f"{part}.{f}")
     assert tuple(jscene.state) == tuple(tscene.state)
+    jk, tk = getattr(jscene, "kd", None), tscene.kd
+    assert (jk is None) == (tk is None)
+    if jk is not None:
+        for part in ("nodes", "tris"):
+            for f, a, b in zip(getattr(jk, part)._fields, getattr(jk, part), getattr(tk, part)):
+                np.testing.assert_array_equal(np.asarray(a), _np(b), err_msg=f"kd.{part}.{f}")
+        for part in ("fat", "oct"):
+            jp, tp = getattr(jk, part), getattr(tk, part)
+            assert (jp is None) == (tp is None), part
+            if jp is not None:
+                np.testing.assert_array_equal(np.asarray(jp.rows), _np(tp.rows))
+        assert int(jk.max_depth) == tk.max_depth
     jc, tc = jscene.cmesh, tscene.cmesh
     assert (jc is None) == (tc is None)
     if jc is None:
@@ -73,7 +85,7 @@ def assert_scene_equal(jscene, tscene):
 @pytest.mark.parametrize("subdiv", [None, 3])
 def test_load_scene_matches_jax(tmp_path, subdiv):
     obj = None if subdiv is None else _obj(tmp_path, subdiv)
-    jscene = jparser.load_scene(CORNELL, obj_path=obj, build_kd=False)
+    jscene = jparser.load_scene(CORNELL, obj_path=obj)
     tscene = tparser.load_scene(CORNELL, obj_path=obj, device="cpu")
     assert_scene_equal(jscene, tscene)
     assert_scene_equal(jparser.with_resolution(jscene, 40, 24),
@@ -91,7 +103,7 @@ def test_cluster_block_fallback_matches_jax(tmp_path, monkeypatch, cap,
     monkeypatch.setattr(jpairs, "MAX_CLUSTER_BLOCKS", cap)
     monkeypatch.setattr(tparser, "MAX_CLUSTER_BLOCKS", cap)
     obj = _obj(tmp_path, subdiv)
-    jscene = jparser.load_scene(CORNELL, obj_path=obj, build_kd=False)
+    jscene = jparser.load_scene(CORNELL, obj_path=obj)
     tscene = tparser.load_scene(CORNELL, obj_path=obj, device="cpu")
     assert_scene_equal(jscene, tscene)
     assert (tscene.cmesh is None) == (block is None)
@@ -102,7 +114,7 @@ def test_cluster_block_fallback_matches_jax(tmp_path, monkeypatch, cap,
 def test_scene_from_numpy_round_trip(tmp_path):
     """A JAX scene carried across equals the port's own load."""
     obj = _obj(tmp_path, 2)
-    jscene = jparser.load_scene(CORNELL, obj_path=obj, build_kd=False)
+    jscene = jparser.load_scene(CORNELL, obj_path=obj)
     carried = scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
     assert_scene_equal(jscene, carried)
     assert_scene_equal(jscene, tparser.load_scene(CORNELL, obj_path=obj,
@@ -112,6 +124,13 @@ def test_scene_from_numpy_round_trip(tmp_path):
 
 
 def test_build_kd_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        tparser.load_scene(CORNELL, obj_path=_obj(tmp_path, 1), build_kd=True,
-                           device="cpu")
+    """The name dates from before the KD build was ported; the test now
+    holds what replaced the raise: ``build_kd=True`` (the default, as in
+    the JAX package) builds the KD table, equal to the JAX package's bit
+    for bit (``assert_scene_equal``), and ``build_kd=False`` builds none."""
+    obj = _obj(tmp_path, 1)
+    jscene = jparser.load_scene(CORNELL, obj_path=obj, build_kd=True)
+    tscene = tparser.load_scene(CORNELL, obj_path=obj, build_kd=True, device="cpu")
+    assert tscene.kd is not None
+    assert_scene_equal(jscene, tscene)
+    assert tparser.load_scene(CORNELL, obj_path=obj, build_kd=False, device="cpu").kd is None

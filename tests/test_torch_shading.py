@@ -28,6 +28,7 @@ from kdtreepathtraceroptimization_tpu.ops import bsdf as jbsdf
 from kdtreepathtraceroptimization_tpu.ops import camera as jcamera
 from kdtreepathtraceroptimization_tpu.ops import intersect as jisect
 from kdtreepathtraceroptimization_tpu.ops import rng as jrng
+from kdtreepathtraceroptimization_tpu.ops import sampling as jsampling
 from kdtreepathtraceroptimization_tpu.ops import shade as jshade
 from kdtreepathtraceroptimization_tpu.ops import vecmath as jvm
 from kdtreepathtraceroptimization_tpu.scene import parser as jparser
@@ -36,6 +37,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import bsdf as tbsdf
 from kdtreepathtraceroptimization_tpu_torch.ops import camera as tcamera
 from kdtreepathtraceroptimization_tpu_torch.ops import intersect as tisect
 from kdtreepathtraceroptimization_tpu_torch.ops import rng as trng
+from kdtreepathtraceroptimization_tpu_torch.ops import sampling as tsampling
 from kdtreepathtraceroptimization_tpu_torch.ops import shade as tshade
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as tvm
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
@@ -176,3 +178,44 @@ def test_scatter_and_shade_match(scenes, softness, inside_frac):
                               mt, _t(sdepth), sss)
         _same_v3(cj, ct, "color")
         _same(bj, bt, "bounces")
+
+
+@pytest.mark.parametrize("fn", ["clip", "maximum"])
+def test_clamp_grads_at_ties_match_jax(fn):
+    """vecmath.clip / vecmath.maximum against jnp.clip / jnp.maximum, at
+    exact bounds, inside and outside: the same values, and the same
+    gradient, exactly (half of it at a tie: jax.grad's rule, where
+    torch.clamp passes all of it)."""
+    x = np.array([-2.0, -1.0, -0.25, 0.0, 0.5, 1.0, 3.0], np.float32)
+    if fn == "clip":
+        jf, tf = (lambda v: jnp.clip(v, -1.0, 1.0)), (lambda v: tvm.clip(v, -1.0, 1.0))
+    else:
+        jf, tf = (lambda v: jnp.maximum(v, 0.0)), (lambda v: tvm.maximum(v, 0.0))
+    w = np.arange(1, 8, dtype=np.float32)  # a weight per entry: a full vector-Jacobian product
+    gj = np.asarray(jax.grad(lambda v: jnp.sum(jf(v) * w))(jnp.asarray(x)))
+    xt = _t(x).requires_grad_(True)
+    yt = tf(xt)
+    (gt,) = torch.autograd.grad((yt * _t(w)).sum(), xt)
+    np.testing.assert_array_equal(np.asarray(jf(jnp.asarray(x))), yt.detach().numpy())
+    np.testing.assert_array_equal(gj, gt.numpy())
+    assert 0.5 in (gt.numpy() / w)  # a tie took half
+
+
+def test_fresnel_grad_at_a_clip_bound_matches_jax():
+    """A differentiated site: the Schlick cosine of a ray leaving along
+    the normal sits exactly at the clip's lower bound (-1); its gradients
+    with respect to the incident direction and the normal equal
+    jax.grad's."""
+    inc = np.array([[0.0, 0.0, 1.0], [0.0, 0.6, -0.8]], np.float32)
+    nrm = np.array([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]], np.float32)
+
+    def jloss(i, n):
+        return jnp.sum(jsampling.schlick_fresnel_v(jvm.v3_from_rows(i), jvm.v3_from_rows(n), 1.5))
+
+    gj = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(inc), jnp.asarray(nrm))
+    it, nt = _t(inc).requires_grad_(True), _t(nrm).requires_grad_(True)
+    loss = tsampling.schlick_fresnel_v(tvm.v3_from_rows(it), tvm.v3_from_rows(nt), 1.5).sum()
+    gt = torch.autograd.grad(loss, (it, nt))
+    for a, b in zip(gj, gt):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-6, atol=0)
+    assert gt[0][0, 2].item() != 0.0
