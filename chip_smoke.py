@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's twelve CUDA kernels (eleven sources) from
-``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per source, in
-parallel) and the native KD builder (g++), and drives its mesh render
+Builds the port's twelve CUDA kernels (twelve sources, one for each TPU
+kernel) from ``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per
+source, in parallel) and the native KD builder (g++), and drives its mesh render
 paths (pair list with either pair kernel, walk, cluster rounds, binned,
 KD walk, brute force) and its gradient path on Cornell + an
 81,920-triangle icosphere at 800x800:
@@ -14,7 +14,8 @@ KD walk, brute force) and its gradient path on Cornell + an
    kernel);
 2. each kernel against its plain PyTorch version, on the inputs a main
    path hands it at its second bounce: slab cull, walk and gather-to-
-   columns from the walk path (slab cull and gather bit for bit, walk ids
+   columns from the walk path (slab cull and gather bit for bit, the
+   gather's time against ``index_select`` and twice its bound, walk ids
    on >= 99.99% of rays with t within 1e-5 relative); pass 1's and pass
    2's extraction (bit for bit) and pass 1's pair test (loc on >= 99.99%
    of real pairs, t within 2^-12 relative) from the pair path; the brute
@@ -32,11 +33,16 @@ KD walk, brute force) and its gradient path on Cornell + an
 4. ``[cluster]``: kernels 9-12 against their plain versions on the inputs
    the cluster-rounds and binned paths hand them at their second bounce
    (sphere cull and argmin bins bit for bit; rounds ids on >= 99.99% of
-   rays with t within 1e-5 relative; the sweep the same on a 16,384-ray
-   slice, timed at full size), and both intersectors against the
-   brute-force kernel on every ray of that bounce (ids on >= 99.99%, t
-   within 1e-5 relative), with the flagged-ray count and the repair;
-5. golden parity: ``cornell_64``, ``mesh_pairs_48`` in its own (pair)
+   rays with t within 1e-5 relative; the sweep the same on the first
+   16,384 of its flagged rows, in both launch shapes: one pass and the
+   block axis split, which must also agree bit for bit on all its flagged
+   rows; timed on them against the bound of that work, in each launch
+   shape, and in its full-width form, every ray listed), and both
+   intersectors against the brute-force kernel on every ray of that
+   bounce (ids on >= 99.99%, t within 1e-5 relative), with the
+   flagged-ray count and the repair;
+5. golden parity: ``cornell_64``, ``cornell_spec_64`` (every pixel but
+   the ten its jit render branched), ``mesh_pairs_48`` in its own (pair)
    config and in walk, cluster-rounds and binned config, ``mesh_kd_48``
    (the KD walk in the default config), against the JAX package's
    goldens;
@@ -53,8 +59,8 @@ KD walk, brute force) and its gradient path on Cornell + an
    ms/iteration, rays/s, peak memory and a profile (a path slower than
    2 s an iteration is timed as one call of one iteration), and for the
    last two the flagged rays and the repair of every bounce; a short
-   cluster-rounds render with 4 rounds at depth 2, so that the sweep
-   launches on a render whether or not 64 rounds ever flag; a short
+   cluster-rounds render with 4 rounds at depth 2 (profiled), so that the
+   sweep launches on a render whether or not 64 rounds ever flag; a short
    ``enable_kd=False`` render through the brute-force kernel; the KD
    walk in the default config on a 320-triangle icosphere at depth 8, and
    with ``cluster_auto=False`` on the 81,920 triangles at depth 2 (one
@@ -170,6 +176,10 @@ BRUTE_SLICE = 16384
 # rendered under jit, whose fused multiply-adds move their first hit by an
 # ulp (tests/test_torch_pairs.py shows it).
 JIT_BRANCHED_PIXELS = (490, 518)
+# The same for cornell_spec_64 (SSS, no AA): its paths branch at these
+# pixels, in mirror pairs; the port equals eager JAX there on the CPU
+# (tests/test_torch_render.py).
+SPEC_JIT_BRANCHED_PIXELS = (845, 883, 1105, 1135, 3025, 3055, 3277, 3315, 3907, 3965)
 
 KERNELS = (
     ("slab_cull", twalk.SLAB_CULL, "kdtreepathtraceroptimization_tpu_torch/csrc/slab_cull.cu",
@@ -192,7 +202,7 @@ KERNELS = (
      "kdtreepathtraceroptimization_tpu/ops/cluster.py:305"),
     ("cluster_rounds", tcl.ROUNDS, "kdtreepathtraceroptimization_tpu_torch/csrc/cluster_rounds.cu",
      "kdtreepathtraceroptimization_tpu/ops/cluster.py:396"),
-    ("cluster_sweep", tcl.SWEEP, "kdtreepathtraceroptimization_tpu_torch/csrc/cluster_rounds.cu",
+    ("cluster_sweep", tcl.SWEEP, "kdtreepathtraceroptimization_tpu_torch/csrc/cluster_sweep.cu",
      "kdtreepathtraceroptimization_tpu/ops/cluster.py:432"),
     ("binned_argmin", tbinned.ARGMIN, "kdtreepathtraceroptimization_tpu_torch/csrc/binned_argmin.cu",
      "kdtreepathtraceroptimization_tpu/ops/binned.py:73"),
@@ -204,6 +214,9 @@ RECORD_PATH = {"slab_cull": "walk", "walk": "walk", "gather_cols": "pairs",
                "pair_bdiag": "pairs_bdiag",
                "mxu_bf": "brute", "cluster_cull": "cluster", "cluster_rounds": "cluster",
                "cluster_sweep": "cluster", "binned_argmin": "binned"}
+# The sweep's record also gives the recorded call's listed rows and
+# slices, its one-pass time, and the full-width form's time and bound.
+SWEEP_EXTRA = ("rows", "slices", "one_pass_ms", "full_width_ms", "full_width_bound_ms")
 # Each main path's image and its iteration count (phase_main_path).
 IMAGES = {}
 # The cluster table's triangle tables that the gradient phases differentiate.
@@ -231,14 +244,23 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# Cycles of the sleep kernel queued ahead of each timed run (about 1 ms):
+# the host enqueues the run while the card sleeps, so the events time the
+# run's device work and not the host's launch latency (tens of us, which
+# an idle card would wait for and which would dominate a short kernel).
+SLEEP_CYCLES = 2_000_000
+
+
 def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` runs (CUDA events),
-    after one warm-up run."""
+    """Median device time of ``fn()`` in ms over ``reps`` runs (CUDA events
+    around the run, a sleep kernel queued ahead of it), after one warm-up
+    run."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         stop.record()
@@ -355,17 +377,6 @@ def check_hits(label, got, want):
     return frac, (bt_k - bt_p)[same].abs().max().item()
 
 
-def real_tris_per_block(cm) -> torch.Tensor:
-    """[kp] real triangles in each cluster block. The build pads a leaf
-    to the block size with degenerate copies (v1 = v2 = v0) that never
-    win (ops/cluster.py), and the lane-padding blocks past
-    ``n_real_blocks`` hold none; a kernel's least work skips both."""
-    t = cm.tris
-    pad = (t.v1 == t.v0).all(dim=1) & (t.v2 == t.v0).all(dim=1)
-    real = (~pad).reshape(cm.n_real_blocks, cm.block).sum(dim=1)
-    return torch.cat([real, real.new_zeros(cm.n_blocks - cm.n_real_blocks)])
-
-
 def needed_rounds(cm, sel, lb, bt, act, tile: int):
     """The least work of a round loop (walk, rounds) on this data: a tile
     must test every listed block whose entry bound lies below some live
@@ -376,7 +387,7 @@ def needed_rounds(cm, sel, lb, bt, act, tile: int):
     live = act.reshape(g, tile) > 0
     worst = torch.where(live, bt.reshape(g, tile), 0.0).amax(dim=1)
     need = lb < worst[:, None]
-    tris_of = real_tris_per_block(cm)[sel.long()]
+    tris_of = cm.real[sel.long()]
     return int(need.sum()), int((need * live.sum(dim=1, keepdim=True) * tris_of).sum())
 
 
@@ -449,7 +460,8 @@ def phase_kernels(scene, config, device) -> dict:
     sync(device)
     if not torch.equal(got, want):
         raise AssertionError("gather_cols differs from packed[tri].T")
-    gbytes = (2 * got.numel() + tri.numel()) * 4
+    # the rows this call reads (each once), its ids and its columns
+    gbytes = (int(torch.unique(tri).numel()) * packed.shape[1] + tri.numel() + got.numel()) * 4
     results["gather_cols"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: tmesh.gather_cols(packed, tri), 20),
@@ -458,9 +470,14 @@ def phase_kernels(scene, config, device) -> dict:
         # one PyTorch call for the same [C, n] result: index_select on the
         # table's transposed view
         library_ms=time_ms(lambda: torch.index_select(packed.T, 1, tri.long()), 20),
-        shape=f"packed [{packed.shape[0]},{packed.shape[1]}], tri [{tri.shape[0]}]",
+        shape=f"packed [{packed.shape[0]},{packed.shape[1]}], tri [{tri.shape[0]}] naming "
+              f"{int(torch.unique(tri).numel())} distinct rows",
     )
-    log(f"[kernels] gather_cols == packed[tri].T bit for bit; {results['gather_cols']['shape']}")
+    g = results["gather_cols"]
+    log(f"[kernels] gather_cols == packed[tri].T bit for bit; {g['shape']}; kernel "
+        f"{g['ms']:.4f} ms against index_select {g['library_ms']:.4f} ms (below: "
+        f"{g['ms'] < g['library_ms']}) and twice its bound {2 * g['bound_ms']:.4f} ms (within: "
+        f"{g['ms'] <= 2 * g['bound_ms']})")
     for name, res in results.items():
         lib = "n/a" if res["library_ms"] is None else f"{res['library_ms']:.4f}"
         log(f"[kernels] {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
@@ -552,7 +569,7 @@ def phase_pairs(scene, device):
     blocks_used = int(torch.unique(blk_s[real]).numel())
     nbytes = blk_s.numel() * 4 + featp.numel() * 4 + got.numel() * 4 + blocks_used * 16 * 4 * block * 4
     # each real pair against the real triangles of its block
-    pair_tests = int(real_tris_per_block(args[2])[blk_s[real].long()].sum())
+    pair_tests = int(args[2].real[blk_s[real].long()].sum())
     results["pair_runs"] = dict(
         max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
         ms=time_ms(lambda: tpairs.pair_runs(blk_s, featp, w, block, ptile, kreal), 20),
@@ -683,35 +700,68 @@ def check_rounds(args, cm) -> dict:
     return res
 
 
-def check_sweep(args, cm) -> dict:
-    """Kernel 11 against its plain version on a BRUTE_SLICE-ray slice of
-    its inputs (whole tiles spread over the tiles with live rays); both
-    timed at full size, the plain version in one call."""
-    r, t0, w, tile, block, kreal = args
-    n = r.shape[0]
-    live = (r[:, 3:6] != 0).any(dim=1)  # dead lanes have d = 0
-    live_tiles = torch.nonzero(live.reshape(n // tile, tile).any(dim=1))[:, 0]
-    pick = live_tiles[torch.linspace(0, live_tiles.numel() - 1, max(1, BRUTE_SLICE // tile),
-                                     device=r.device).long().unique()]
-    idx = (pick[:, None] * tile + torch.arange(tile, device=r.device)).reshape(-1)
-    rs, ts = r[idx], t0[idx]
-    frac, max_err = check_hits(f"cluster_sweep on {idx.numel()} rays",
-                               tcl.sweep(rs, ts, w, tile, block, kreal),
-                               tcl._sweep_ref(rs, ts, w, tile, block, kreal))
+def sweep_bound(r, rows, cm) -> dict:
+    """The least time of a sweep of ``rows``: each listed live ray (dead
+    lanes have d = 0) against each real triangle, MT_OPS_PER_TEST
+    operations a test; bytes: the listed rays' features, bounds and ids,
+    the real triangles' 160-byte records, and the outputs."""
+    live = int((r[rows.long(), 3:6] != 0).any(dim=1).sum())
+    tris = int(cm.real.sum())
+    nbytes = rows.numel() * (16 + 2 + 1) * 4 + tris * 160 + 2 * rows.numel() * 4
+    return dict(live=live, tris=tris, **bound(nbytes, live * tris * MT_OPS_PER_TEST))
+
+
+def check_sweep(args, label) -> dict:
+    """Kernel 11 on one recorded repair call (the flagged rows of a main
+    path's bounce): both launch shapes, one pass (slices = 1) and the
+    block axis split as the wrapper picks it, against the plain version on
+    the first BRUTE_SLICE listed rows; the call's time in the wrapper's
+    shape against its bound, and the one-pass shape's; the full-width form
+    (every ray of the call listed) against the 212.09 ms the TPU-shaped sweep took on the
+    same call (H100 80GB HBM3, 700 W; PERF.md) and its own bound. The
+    plain version is timed in one call on the recorded rows."""
+    rows, r, bt, btri, cm, tile = args
+    n, m = r.shape[0], rows.shape[0]
+    kreal = cm.n_real_blocks
+    auto = tcl.SWEEP.call_int("cluster_sweep_slices", m, kreal)
+    sl = rows[:BRUTE_SLICE]
+    want = tcl._sweep_ref(sl, r, bt, btri, cm.w, tile, cm.block, kreal)
+    frac = max_err = None
+    for slices in (1, tcl.SWEEP.call_int("cluster_sweep_slices", sl.numel(), kreal), auto):
+        got = tcl.sweep(sl, r, bt, btri, cm, tile, slices=slices)
+        f, e = check_hits(f"cluster_sweep ({label}) on {sl.numel()} of its {m} rows, "
+                          f"{slices} slices", [a[sl.long()] for a in got],
+                          [a[sl.long()] for a in want])
+        frac = f if frac is None else min(frac, f)
+        max_err = e if max_err is None else max(max_err, e)
+    one = tcl.sweep(rows, r, bt, btri, cm, tile, slices=1)
+    split = tcl.sweep(rows, r, bt, btri, cm, tile)
+    sync(r.device)
+    if not (torch.equal(one[0], split[0]) and torch.equal(one[1], split[1])):
+        raise AssertionError(f"cluster_sweep ({label}): one pass and {auto} slices differ")
+    log(f"[kernels] cluster_sweep ({label}): one pass and {auto} slices equal bit for bit on "
+        f"all {m} rows")
     t = time.perf_counter()
-    tcl._sweep_ref(r, t0, w, tile, block, kreal)
+    tcl._sweep_ref(rows, r, bt, btri, cm.w, tile, cm.block, kreal)
     sync(r.device)
     plain_ms = (time.perf_counter() - t) * 1e3
-    n_live = int(live.sum())
-    tris = int(real_tris_per_block(cm).sum())
-    nbytes = (r.numel() + 3 * n + kreal * 16 * 4 * block) * 4
-    res = dict(max_abs_err=max_err, ms=time_ms(lambda: tcl.sweep(r, t0, w, tile, block, kreal), 3),
-               plain_ms=plain_ms, library_ms=None,
-               **bound(nbytes, n_live * tris * MT_OPS_PER_TEST),
-               shape=f"{n} rays ({n_live} live) x {kreal} blocks of {block} slots ({tris} real "
-                     f"triangles), tiles of {tile}", ids_equal=frac)
-    log(f"[kernels] cluster_sweep: {res['shape']}; kernel {res['ms']:.2f} ms, plain "
-        f"{plain_ms:.2f} ms (one call)")
+    flagged = sweep_bound(r, rows, cm)
+    every = torch.arange(n, dtype=torch.int32, device=r.device)
+    full = sweep_bound(r, every, cm)
+    res = dict(max_abs_err=max_err, ids_equal=frac, plain_ms=plain_ms, library_ms=None,
+               ms=time_ms(lambda: tcl.sweep(rows, r, bt, btri, cm, tile), 5),
+               one_pass_ms=time_ms(lambda: tcl.sweep(rows, r, bt, btri, cm, tile, slices=1), 5),
+               bound_ms=flagged["bound_ms"], bound_by=flagged["bound_by"], rows=m,
+               slices=auto,
+               full_width_ms=time_ms(lambda: tcl.sweep(every, r, bt, btri, cm, tile), 3),
+               full_width_bound_ms=full["bound_ms"],
+               shape=f"{m} listed rows ({flagged['live']} live) of {n} rays x {kreal} blocks "
+                     f"of {cm.block} slots ({flagged['tris']} real triangles)")
+    log(f"[kernels] cluster_sweep ({label}): {res['shape']}; kernel {res['ms']:.3f} ms "
+        f"({auto} slices; one pass {res['one_pass_ms']:.3f} ms), bound {res['bound_ms']:.3f} ms "
+        f"({res['bound_by']}), plain {plain_ms:.1f} ms (one call); full width ({n} rows, "
+        f"{full['live']} live): {res['full_width_ms']:.2f} ms against the TPU-shaped sweep's "
+        f"212.09 ms, bound {res['full_width_bound_ms']:.2f} ms")
     return res
 
 
@@ -762,15 +812,17 @@ def phase_cluster(scene, device) -> dict:
         sweep_args = rs4.args
     results["cluster_cull"] = check_cull(rc.args)
     results["cluster_rounds"] = check_rounds(rr.args, cm)
-    results["cluster_sweep"] = check_sweep(sweep_args, cm)
+    results["cluster_sweep"] = check_sweep(sweep_args, "cluster path")
 
     args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **BINNED),
                                "intersect_mesh_binned", device)
-    with Recorder(tbinned, "argmin_bins", 0) as ra:
+    with Recorder(tbinned, "argmin_bins", 0) as ra, Recorder(tcl, "sweep", 0) as rbs:
         hit, stats = tbinned.intersect_mesh_binned(*args, **kwargs, collect_stats=True)
     log(f"[cluster] binned (32 rounds), bounce 1: {stats}")
     brute_check("[cluster] binned (32)", hit, args, kwargs)
     results["binned_argmin"] = check_argmin(ra.args)
+    if rbs.args is not None:
+        results["cluster_sweep_binned"] = check_sweep(rbs.args, "binned path")
     for name in ("cluster_cull", "cluster_rounds", "cluster_sweep", "binned_argmin"):
         res = results[name]
         log(f"[kernels] {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
@@ -831,7 +883,7 @@ def phase_bdiag(scene, device) -> dict:
     blocks_used = int(torch.unique(blk_s[real]).numel())
     nbytes = (blk_s.numel() + featp.numel() + got.numel()
               + blocks_used * 16 * 4 * block) * 4
-    pair_tests = int(real_tris_per_block(args[2])[blk_s[real].long()].sum())
+    pair_tests = int(args[2].real[blk_s[real].long()].sum())
     res = dict(
         max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
         ms=time_ms(lambda: tpairs.pair_bdiag(blk_s, featp, w, block, ptile, kreal), 20),
@@ -909,6 +961,15 @@ def phase_goldens(device):
         f"(bound: per pixel 2e-3)")
     if d.max() > 2e-3:
         raise AssertionError("cornell_64 differs from its golden beyond atol 2e-3")
+    img = render(scene, RenderConfig(trace_depth=8, antialias=False, enable_sss=True), spp=8,
+                 seed=0, device=device)
+    d = np.abs(img.cpu().numpy() - np.load(os.path.join(GOLDENS, "cornell_spec_64.npy")))
+    off = np.flatnonzero((d > 2e-3).any(axis=-1))
+    log(f"[golden] cornell_spec_64: max |d| {d.max():.3g}, mean |d| {d.mean():.3g}; {off.size} "
+        f"pixels beyond atol 2e-3 ({', '.join(str(i) for i in off)}) (bound: no pixel but "
+        f"{SPEC_JIT_BRANCHED_PIXELS})")
+    if not set(off.tolist()) <= set(SPEC_JIT_BRANCHED_PIXELS):
+        raise AssertionError("cornell_spec_64 differs from its golden beyond atol 2e-3")
 
     scene = mesh_scene(4, 2.0, 48, device)
     golden = np.load(os.path.join(GOLDENS, "mesh_pairs_48.npy"))
@@ -1356,7 +1417,7 @@ def main() -> int:
                                       RenderConfig(trace_depth=2, antialias=True,
                                                    cluster_rounds=4, **CLUSTER),
                                       device, ("cluster_sweep",), block=1, timed_calls=1,
-                                      profile=False, repair="intersect_mesh_cluster"),
+                                      repair="intersect_mesh_cluster"),
         "brute": phase_main_path("brute", scene,
                                  RenderConfig(trace_depth=2, antialias=True, enable_kd=False,
                                               cluster_auto=False),
@@ -1398,7 +1459,8 @@ def main() -> int:
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=paths[record_path[name]][name],
              **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                              "bound_ms", "bound_by", "library_ms")})
+                                              "bound_ms", "bound_by", "library_ms")},
+             **{k: results[name][k] for k in SWEEP_EXTRA if k in results[name]})
         for name, _, source, replaces in KERNELS
     ]}
     log(f"[card] {card}")

@@ -6,13 +6,16 @@ NVIDIA H100. It keeps the JAX package's layout and names (``config``,
 same random streams, so one scene renders to the same image in both
 packages up to float summation order.
 
-It renders meshes through the pair list (the default config), the exact
-cluster walk and the two brute forces, and differentiates the render with
-respect to the material table, the camera and the mesh's triangle tables
-(``models.inverse``: ``render_loss``, ``make_train_step``). Its seven
-kernels are CUDA C++ written for Hopper (``csrc/``), each with a plain
-PyTorch version beside it that runs on CPU tensors. Configurations outside
-the port raise ``NotImplementedError``.
+It renders meshes through every mesh route of the JAX package's dispatch:
+the pair list (the default config from 1,024 triangles, with either pair
+kernel: ``pair_bdiag``), the fat-row KD walk (the default below that), the
+exact cluster walk, cluster rounds, the binned intersector and the two
+brute forces. It differentiates the render with respect to the material
+table, the camera and the mesh's triangle tables (``models.inverse``:
+``render_loss``, ``make_train_step``). Its twelve kernels, one for each
+TPU kernel of the JAX package, are CUDA C++ written for Hopper
+(``csrc/``), each with a plain PyTorch version beside it that runs on CPU
+tensors. Configurations outside the port raise ``NotImplementedError``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.

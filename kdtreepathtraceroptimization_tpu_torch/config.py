@@ -3,12 +3,14 @@
 Same field names and defaults as ``kdtreepathtraceroptimization_tpu.config``
 so one config describes a render in either package. This port implements
 the pair-list intersector (``cluster_pairs=True``, the default for a mesh
-with a cluster table), the exact cluster walk (``cluster_walk=True,
-cluster_pairs=False``), the binned and cluster-rounds intersectors
-(``cluster_binned=True``, or neither, with ``cluster_pairs=False``), both
-brute forces (``enable_kd=False``) and the analytic-only path; the
-integrator raises ``NotImplementedError`` for fields that select anything
-else (see ``render/integrator.py``). The field comments name the reference
+of at least ``cluster_min_tris`` triangles, with kernel 7 for its pair test
+under ``pair_bdiag=True``), the fat-row KD walk (the default below that,
+and with ``cluster_auto=False``), the exact cluster walk
+(``cluster_walk=True, cluster_pairs=False``), the binned and cluster-rounds
+intersectors (``cluster_binned=True``, or neither, with
+``cluster_pairs=False``), both brute forces (``enable_kd=False``) and the
+analytic-only path; the integrator raises ``NotImplementedError`` for
+fields that select anything else (see ``render/integrator.py``). The field comments name the reference
 renderer's toggles (src/main.cpp:35-60).
 """
 

@@ -6,7 +6,8 @@ np.asarray, scene)``), or the port's own — and returns the port's
 ``SceneData`` with the mesh, KD and cluster tables as tensors on
 ``device`` and the small tables (camera, geoms, materials) as numpy on
 the host. Each table with triangles gets its [T, 19] record
-(``ops.mesh.pack_tris``) there.
+(``ops.mesh.pack_tris``) there, and the cluster table its blocks' real
+slot counts (``ops.cluster.real_slots``).
 
 For gradients, ``materials_to_torch`` carries a material table onto a
 device as tensors (optionally leaves that require grad) and
@@ -20,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kdtreepathtraceroptimization_tpu_torch.ops.cluster import ClusterMesh
+from kdtreepathtraceroptimization_tpu_torch.ops.cluster import ClusterMesh, real_slots
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import pack_tris
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import (
     Camera,
@@ -80,11 +81,12 @@ def scene_from_numpy(scene, device) -> SceneData:
         cmesh = ClusterMesh(
             **{f: to_tensor(getattr(cm, f), device)
                for f in ClusterMesh._fields
-               if f not in ("tris", "block", "n_real_blocks", "packed")},
+               if f not in ("tris", "block", "n_real_blocks", "packed", "real")},
             tris=tris,
             block=int(cm.block),
             n_real_blocks=int(cm.n_real_blocks),
             packed=pack_tris(tris),
+            real=real_slots(tris, int(cm.block), int(np.shape(cm.blk)[1])),
         )
     return SceneData(
         camera=Camera(*(_host(a) for a in scene.camera)),
@@ -119,7 +121,7 @@ def materials_to_numpy(materials) -> MaterialSoA:
 def with_tris(cmesh: ClusterMesh, tris: MeshSoA) -> ClusterMesh:
     """``cmesh`` with triangle tables ``tris`` and its [T, 19] record built
     from them, so gradients reach them through the hit expansion. The
-    intersectors keep reading ``cmesh``'s own block weights and bounds:
-    the winner choice carries no gradient. Build it once per
+    intersectors keep reading ``cmesh``'s own block weights, bounds and
+    real-slot counts: the winner choice carries no gradient. Build it once per
     differentiated call; the record is shared by every bounce."""
     return cmesh._replace(tris=tris, packed=pack_tris(tris))

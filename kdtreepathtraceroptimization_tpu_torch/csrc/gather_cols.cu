@@ -9,11 +9,12 @@
 // material); the result is C channel arrays [C, n], one per field, which
 // the hit expansion reads as contiguous [n] vectors.
 //
-// Bound on this card: bytes. It moves 4 bytes in (per element, once) and 4
-// out and computes nothing. Design: one thread per ray reads its row (the
-// C floats of one row are contiguous, so the row arrives in one or two
-// cache lines) and writes each channel; for a fixed channel, neighbouring
-// threads write neighbouring addresses, so the stores coalesce. The TPU
+// Bound on this card: bytes. It reads each id and each row the ids name
+// once, writes each output float once, and computes nothing. Design: one
+// thread per ray reads its row (the C floats of one row are contiguous, so
+// the row arrives in one or two cache lines) and writes each channel; for a
+// fixed channel, neighbouring threads write neighbouring addresses, so the
+// stores coalesce. The TPU
 // version needed a separate transpose because its gather produced rows.
 
 #include <cuda_runtime.h>

@@ -1,10 +1,10 @@
 // One block of triangles' Moller-Trumbore weights in shared memory, and
 // the test of one ray against one staged triangle.
 //
-// Shared by pair_runs.cu, mxu_bf.cu and cluster_rounds.cu. walk.cu keeps
-// its own copy of the same code: built from this header, nvcc scheduled the
-// walk's loops differently and the walk ran slower on the H100, with
-// identical results.
+// Shared by pair_runs.cu, mxu_bf.cu, cluster_rounds.cu and
+// cluster_sweep.cu. walk.cu keeps its own copy of the same code: built from
+// this header, nvcc scheduled the walk's loops differently and the walk ran
+// slower on the H100, with identical results.
 //
 // A weight block is the cluster table's [16, 4B] layout (ops/cluster.py,
 // ops/mxu_bf.py): for triangle j, column j holds a's weights, column B + j

@@ -18,7 +18,8 @@ Per call:
   4. repair: flagged rays (their tile's first unselected block could beat
      them) are compacted into ``REPAIR_LANES`` lanes and rerun through the
      same pipeline with every feasible block (R = K), which cannot flag
-     again; more flagged rays than that take the full sweep (kernel 11).
+     again; more flagged rays than that take the sweep (kernel 11) of
+     every real triangle.
      The flag count is one host read;
   5. un-bin the results.
 
@@ -181,11 +182,11 @@ def intersect_mesh_binned(origin, direction, cm: "cl.ClusterMesh", config,
         bt = bt.index_copy(0, pos, torch.where(upd, bt2, bt_g))
         btri = btri.index_copy(0, pos, torch.where(upd, btri2, btri[pos]))
     elif count > mr:
-        # More flagged rays than the buffer: the bounded sweep over every
-        # block for every tile.
+        # More flagged rays than the buffer: the bounded sweep of each
+        # flagged ray over every real triangle.
         repair = "sweep"
-        bt, btri = cl._repair_merge(bt, btri, *cl.sweep(cl._ray_rows(x), bt, cm.w, tile,
-                                                        cm.block, cm.n_real_blocks))
+        bt, btri = cl.sweep(cl.flagged_rows(flagged, count), cl._ray_rows(x), bt, btri, cm,
+                            tile)
 
     bt, btri = bt[:n], btri[:n]
     bt = torch.where(btri >= 0, bt, BIG)

@@ -1,8 +1,9 @@
 """Cluster table and the cluster-rounds intersector.
 
 The JAX package's ``ops/cluster.py`` in PyTorch, with its three TPU kernels
-ported to CUDA (``csrc/cluster_cull.cu``, ``csrc/cluster_rounds.cu``). The
-host build is numpy, so its arrays equal the JAX build bit for bit: it
+ported to CUDA (``csrc/cluster_cull.cu``, ``csrc/cluster_rounds.cu``,
+``csrc/cluster_sweep.cu``). The host build is numpy, so its arrays equal
+the JAX build bit for bit: it
 splits the triangles into median-split KD leaves of ``block`` triangles
 (padding leaves with degenerate copies that never win), keeps each block's
 Moller-Trumbore weights ``[16, 4B]`` (``ops/mxu_bf``), bounding sphere and
@@ -21,9 +22,9 @@ The intersector (``intersect_mesh_cluster``), per call:
      nearest hit; a round runs only while some live ray can still beat
      its entry bound;
   5. repair (kernel 11): a ray whose best t exceeds its tile's first
-     unselected entry bound is flagged; if any ray is, every tile sweeps
-     every real block, bounded by its best t. The flag count is one host
-     read;
+     unselected entry bound is flagged; if any ray is, each flagged ray
+     sweeps every real triangle, bounded by its best t. The flag count is
+     one host read;
   6. un-sort the results.
 
 The result equals brute force over the mesh. The plain round loop
@@ -55,13 +56,14 @@ _I = ctypes.c_int
 CULL = CudaKernel("cluster_cull", "cluster_cull", [_P, _P, _P, _P, _I, _I, _I])
 ROUNDS = CudaKernel("cluster_rounds", "cluster_rounds",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
-SWEEP = CudaKernel("cluster_rounds", "cluster_sweep", [_P, _P, _P, _P, _P, _I, _I, _I, _I])
+SWEEP = CudaKernel("cluster_sweep", "cluster_sweep",
+                   [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I])
 
 # Shared memory the sphere cull stages per ray of its tile (bytes): o, d,
 # t0, act, o.d and |o|^2.
 _CULL_BYTES_PER_RAY = 40
 # Shared memory one staged weight block of B triangles takes in the rounds
-# and sweep kernels (bytes per triangle: csrc/mt_block.cuh).
+# kernel (bytes per triangle: csrc/mt_block.cuh).
 _STAGED_BYTES_PER_TRI = 160
 # Elements of [rays, blocks] entries the plain cull makes at once.
 _REF_ENTRY_ELEMS = 1 << 26
@@ -81,6 +83,7 @@ class ClusterMesh(NamedTuple):
     block: int             # B, triangles per block
     n_real_blocks: int     # K before lane padding
     packed: torch.Tensor   # [T, 19] f32 rows of tris (ops.mesh.pack_tris)
+    real: torch.Tensor     # [Kpad] i32 leading slots of each block that can hit (real_slots)
 
     @property
     def n_blocks(self) -> int:
@@ -258,7 +261,20 @@ def build_cluster_mesh(mesh: MeshSoA, block: int = 256, method: str = "kd",
         block=block,
         n_real_blocks=k,
         packed=pack_tris(tris),
+        real=real_slots(tris, block, kp),
     )
+
+
+def real_slots(tris: MeshSoA, block: int, n_blocks: int):
+    """[n_blocks] i32: one past block k's last slot that is not a padding
+    copy (v1 = v2 = v0: determinant 0, never hit). The build pads a leaf at
+    its end, so the slots before real[k] are the block's triangles; the
+    lane-padding blocks have none."""
+    pad = (tris.v1 == tris.v0).all(dim=1) & (tris.v2 == tris.v0).all(dim=1)
+    k = pad.shape[0] // block
+    slot = torch.arange(1, block + 1, dtype=torch.int32, device=pad.device)
+    real = torch.where(pad.reshape(k, block), 0, slot).amax(dim=1).to(torch.int32)
+    return torch.cat([real, real.new_zeros(n_blocks - k)])
 
 
 # Largest [tiles, tile, 4B] product the plain round loop makes at once
@@ -417,20 +433,6 @@ def _select(tile_entry, rounds: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_round_args(kernel, r, t0, w, tile: int, block: int):
-    """Shared checks of the rounds and sweep wrappers."""
-    device = r.device
-    n = r.shape[0]
-    kp = w.shape[0]
-    rpt = kernel.call_int("cluster_rays_per_thread")
-    if (tile <= 0 or n % tile or tile % rpt or tile // rpt > 1024
-            or block * _STAGED_BYTES_PER_TRI > MAX_SMEM):
-        raise ValueError(f"{kernel.symbol}: bad tile {tile} / block {block} for {n} rays")
-    check_tensor(r, "r", torch.float32, (n, 16), device)
-    check_tensor(t0, "t0", torch.float32, (n,), device)
-    check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
-
-
 def cluster_rounds(sel, lb, r, t0, act, w, tile: int, block: int):
     """Per-tile budgeted rounds (kernel 10) -> (bt [n], btri [n]): each
     ray's nearest t below its t0 over the blocks ``sel`` lists for its
@@ -441,8 +443,15 @@ def cluster_rounds(sel, lb, r, t0, act, w, tile: int, block: int):
     if r.device.type != "cuda":
         raise ValueError(f"cluster_rounds runs on CUDA or CPU tensors, not {r.device}")
     device = r.device
-    _check_round_args(ROUNDS, r, t0, w, tile, block)
     n = r.shape[0]
+    kp = w.shape[0]
+    rpt = ROUNDS.call_int("cluster_rays_per_thread")
+    if (tile <= 0 or n % tile or tile % rpt or tile // rpt > 1024
+            or block * _STAGED_BYTES_PER_TRI > MAX_SMEM):
+        raise ValueError(f"cluster_rounds: bad tile {tile} / block {block} for {n} rays")
+    check_tensor(r, "r", torch.float32, (n, 16), device)
+    check_tensor(t0, "t0", torch.float32, (n,), device)
+    check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
     rounds = sel.shape[1]
     check_tensor(sel, "sel", torch.int32, (n // tile, rounds), device)
     check_tensor(lb, "lb", torch.float32, (n // tile, rounds), device)
@@ -459,41 +468,70 @@ def cluster_rounds(sel, lb, r, t0, act, w, tile: int, block: int):
     return bt, btri
 
 
-def _sweep_ref(r, t0, w, tile: int, block: int, kreal: int):
-    """Plain sweep: the round loop over blocks 0 .. kreal-1, no bound."""
-    g = r.shape[0] // tile
+def _sweep_ref(rows, r, bt, btri, w, tile: int, block: int, kreal: int):
+    """Plain sweep: the listed rays gathered into tiles of ``tile`` (the
+    last padded by repeating the last row), the round loop over blocks 0
+    .. kreal-1 with no bound but each ray's bt, and its hits written back
+    to copies of (bt, btri)."""
+    bt_out, btri_out = bt.clone(), btri.clone()
+    m = rows.shape[0]
+    if m == 0:
+        return bt_out, btri_out
+    idx = rows.long()
+    idx = torch.cat([idx, idx[-1:].expand((-m) % tile)])
+    g = idx.shape[0] // tile
     all_sel = torch.arange(kreal, dtype=torch.int32, device=r.device).expand(g, kreal)
-    return _cluster_ref(all_sel, None, r, t0, None, w, tile, block, kreal)
+    bt2, btri2 = _cluster_ref(all_sel, None, r[idx], bt[idx], None, w, tile, block, kreal)
+    keep = btri2 >= 0
+    bt_out[idx[keep]] = bt2[keep]
+    btri_out[idx[keep]] = btri2[keep]
+    return bt_out, btri_out
 
 
-def sweep(r, t0, w, tile: int, block: int, kreal: int):
-    """Exactness repair (kernel 11) -> (bt [n], btri [n]): blocks 0 ..
-    kreal-1 for every tile, bounded by t0; no order, no act mask (dead
-    lanes have d = 0 and never hit). The TPU kernel also streams the
-    lane-padding blocks past ``kreal``, whose weights are all zero and
-    never hit."""
+def sweep(rows, r, bt, btri, cm: ClusterMesh, tile: int, slices=None):
+    """Exactness repair (kernel 11) -> (bt, btri) [n]: each ray that
+    ``rows`` [m] (int32, distinct) lists against every real triangle of
+    blocks 0 .. kreal-1, bounded by its own bt; its nearest hit replaces
+    (bt, btri) where one was found, every other entry is kept. No act
+    mask: dead lanes have d = 0 and never hit.
+
+    ``tile`` is the plain version's: the CPU's batched product sums in an
+    order that depends on it. ``slices`` splits the kernel's block axis
+    (None: as many as fill the card, 1 when the rays alone do)."""
     if r.device.type == "cpu":
-        return _sweep_ref(r, t0, w, tile, block, kreal)
+        return _sweep_ref(rows, r, bt, btri, cm.w, tile, cm.block, cm.n_real_blocks)
     if r.device.type != "cuda":
         raise ValueError(f"sweep runs on CUDA or CPU tensors, not {r.device}")
     device = r.device
-    _check_round_args(SWEEP, r, t0, w, tile, block)
-    n = r.shape[0]
-    if not 0 <= kreal <= w.shape[0]:
-        raise ValueError(f"sweep: {kreal} real blocks of {w.shape[0]}")
-    bt = torch.empty((n,), dtype=torch.float32, device=device)
-    btri = torch.empty((n,), dtype=torch.int32, device=device)
-    if n:
-        SWEEP.launch(device, r.data_ptr(), t0.data_ptr(), w.data_ptr(), bt.data_ptr(),
-                     btri.data_ptr(), n, kreal, tile, block)
-    return bt, btri
+    n, m = r.shape[0], rows.shape[0]
+    kp, block, kreal = cm.n_blocks, cm.block, cm.n_real_blocks
+    check_tensor(rows, "rows", torch.int32, (m,), device)
+    check_tensor(r, "r", torch.float32, (n, 16), device)
+    check_tensor(bt, "bt", torch.float32, (n,), device)
+    check_tensor(btri, "btri", torch.int32, (n,), device)
+    check_tensor(cm.w, "w", torch.float32, (kp, 16, 4 * block), device)
+    check_tensor(cm.real, "real", torch.int32, (kp,), device)
+    if not 0 <= kreal <= kp or m > n or block % 4:
+        raise ValueError(f"sweep: {m} rows of {n} rays, {kreal} real blocks of {kp} "
+                         f"(block {block}, a multiple of 4)")
+    bt_out, btri_out = bt.clone(), btri.clone()
+    if m and kreal:
+        if slices is None:
+            with torch.cuda.device(device):  # the card whose SMs the rule counts
+                slices = SWEEP.call_int("cluster_sweep_slices", m, kreal)
+        if slices < 1:
+            raise ValueError(f"sweep: {slices} slices")
+        key = torch.empty((m,), dtype=torch.int64, device=device) if slices > 1 else None
+        SWEEP.launch(device, rows.data_ptr(), m, r.data_ptr(), bt.data_ptr(), cm.w.data_ptr(),
+                     cm.real.data_ptr(), bt_out.data_ptr(), btri_out.data_ptr(),
+                     None if key is None else key.data_ptr(), kreal, block, slices)
+    return bt_out, btri_out
 
 
-def _repair_merge(bt, btri, bt2, btri2):
-    """Keep a repair pass's result where it found a hit (it is bounded by
-    bt, so any hit it finds is nearer)."""
-    keep = btri2 >= 0
-    return torch.where(keep, bt2, bt), torch.where(keep, btri2, btri)
+def flagged_rows(flagged, count: int):
+    """[count] int32 positions of the ``count`` set entries of ``flagged``,
+    in order, without a host read."""
+    return torch.nonzero_static(flagged, size=count)[:, 0].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -561,12 +599,11 @@ def intersect_mesh_cluster(origin, direction, cm: ClusterMesh, config,
     bt, btri = cluster_rounds(sel, lb, r, t0, actf, cm.w, tile, cm.block)
 
     # Exactness repair: a ray that its tile's first unselected block could
-    # still beat reruns against every block, bounded by its best t.
+    # still beat reruns against every real triangle, bounded by its best t.
     flagged = act & (lb_over.repeat_interleave(tile) < bt)
     nflag = int(flagged.sum())
     if nflag:
-        bt, btri = _repair_merge(bt, btri,
-                                 *sweep(r, bt, cm.w, tile, cm.block, cm.n_real_blocks))
+        bt, btri = sweep(flagged_rows(flagged, nflag), r, bt, btri, cm, tile)
 
     if perm is not None:  # un-sort
         bt = torch.empty_like(bt).index_copy_(0, perm, bt)

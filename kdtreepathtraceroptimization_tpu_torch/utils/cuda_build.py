@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("slab_cull", "walk", "gather_cols", "scatter_cols", "pair_extract", "pair_runs",
-           "pair_bdiag", "mxu_bf", "cluster_cull", "cluster_rounds", "binned_argmin")
+           "pair_bdiag", "mxu_bf", "cluster_cull", "cluster_rounds", "cluster_sweep",
+           "binned_argmin")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

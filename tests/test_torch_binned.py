@@ -88,14 +88,25 @@ def test_binned_matches_jax_and_brute(rounds, repair):
 
 def test_binned_sweep_fallback(monkeypatch):
     """More flagged rays than the repair buffer take the sweep, in both
-    packages."""
+    packages; the port's sweeps the flagged rows alone."""
     mesh, jcm, tcm = _tables(3)
     o, d = _rays(2048, seed=7)
     monkeypatch.setattr(tbn, "REPAIR_LANES", 64)
     monkeypatch.setattr(jbn, "REPAIR_LANES", 64)
+    listed = []
+    real_sweep = tbn.cl.sweep
+
+    def sweep(rows, *args, **kwargs):
+        listed.append(rows)
+        return real_sweep(rows, *args, **kwargs)
+
+    monkeypatch.setattr(tbn.cl, "sweep", sweep)
     kw = dict(cluster_tile=256, binned_rounds=1, **BINNED)
     hit, stats = tbn.intersect_mesh_binned(_t(o), _t(d), tcm, TCfg(**kw), collect_stats=True)
     assert stats["repair"] == "sweep" and stats["flagged"] > 64
+    (rows,) = listed
+    assert rows.dtype == torch.int32 and rows.shape == (stats["flagged"],)
+    assert bool((rows[1:] > rows[:-1]).all()) and int(rows[-1]) < 2048
     _check_against_brute(mesh, o, d, hit)
     hj = jax.jit(lambda o, d: jbn.intersect_mesh_binned(o, d, jcm, JCfg(**kw)))(o, d)
     _assert_hits((hj.t, hj.tri), hit.t, hit.tri)

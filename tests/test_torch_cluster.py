@@ -12,11 +12,14 @@ Tolerances, and why:
   the radius cancelling);
 - ``_select`` bit for bit (both sorts are stable);
 - the plain rounds and sweep: triangle ids exactly, t within 1e-6
-  relative (a 16-term float32 product summed in another order);
+  relative (a 16-term float32 product summed in another order); the
+  sweep of a row list bit for bit against the port's full-width sweep
+  (the plain version keeps the caller's tile, so its products sum alike);
 - whole intersectors: ids and t against the JAX intersector as above, and
   against brute force within the JAX cluster tests' own 2e-4.
 """
 
+import functools
 import os
 
 import jax
@@ -182,10 +185,88 @@ def test_sweep_matches_jax_ref_and_pallas_interpret():
     all_sel = jnp.broadcast_to(jnp.arange(kp, dtype=jnp.int32)[None, :], (g, kp))
     refs = (_jax_cluster_ref(all_sel, None, r, t0, jnp.ones(1024), jcm.w, 256, jcm.block, kp),
             jcl._sweep_pallas(r, t0, jcm.w, 256, jcm.block, True))
-    bt, btri = tcl.sweep(_t(r), _t(t0), tcm.w, 256, tcm.block, tcm.n_real_blocks)
+    every = torch.arange(1024, dtype=torch.int32)  # the full-width form: every ray listed
+    bt, btri = tcl.sweep(every, _t(r), _t(t0), torch.full((1024,), -1, dtype=torch.int32),
+                         tcm, 256)
     assert (btri.numpy() >= 0).sum() > 200 and tcm.n_real_blocks < kp
     for want in refs:
         _assert_hits(want, bt, btri)
+
+
+@functools.lru_cache(maxsize=None)
+def _repair_case(subdiv, rounds, tile=256, n=1024):
+    """The JAX pipeline up to the repair on _x's rays: the rounds' (bt,
+    btri), the flagged rays, and the full sweep over every block merged
+    into (bt, btri) as the JAX intersector merges it."""
+    _, jcm, tcm = _tables(subdiv)
+    x = _x(jcm, n, seed=subdiv + rounds)
+    sel, lb, lb_over = jcl._select(jcl._cull_ref(jnp.asarray(x), jcm.cull_w, jcm.blk, tile),
+                                   rounds)
+    r, t0, act = _features(x), jnp.asarray(x[:, 6]), jnp.asarray(x[:, 7])
+    bt, btri = _jax_cluster_ref(sel, lb, r, t0, act, jcm.w, tile, jcm.block, sel.shape[1])
+    flagged = (act > 0) & (jnp.repeat(lb_over, tile) < bt)
+    kp = jcm.n_blocks
+    all_sel = jnp.broadcast_to(jnp.arange(kp, dtype=jnp.int32)[None, :], (n // tile, kp))
+    bt2, btri2 = _jax_cluster_ref(all_sel, None, r, bt, act, jcm.w, tile, jcm.block, kp)
+    keep = btri2 >= 0
+    merged = (np.asarray(jnp.where(keep, bt2, bt)), np.asarray(jnp.where(keep, btri2, btri)))
+    return (tcm, np.asarray(r), np.asarray(bt), np.asarray(btri), np.asarray(flagged),
+            np.asarray(act) > 0, merged)
+
+
+@pytest.mark.parametrize("subdiv", [2, 3])
+@pytest.mark.parametrize("rounds", [1, 4])
+@pytest.mark.parametrize("listed", ["flagged", "empty", "with dead lanes"])
+def test_row_sweep_matches_jax_full_sweep_merged(subdiv, rounds, listed):
+    """The sweep of a row list against the JAX full sweep of every tile,
+    merged into the rounds' result: the listed rows take the merged
+    result, every other row keeps its own. On the flagged rows the full
+    sweep changes no other row, so the row sweep is the whole repair. Ids
+    exactly and t within T_RTOL against JAX; against the port's own
+    full-width form (every row listed, same tile), bit for bit."""
+    tcm, r, bt, btri, flagged, live, (mt, mtri) = _repair_case(subdiv, rounds)
+    n = bt.shape[0]
+    if listed == "flagged":
+        rows = np.flatnonzero(flagged)
+        assert rows.size > 0
+        np.testing.assert_array_equal(mtri[~flagged], btri[~flagged])
+    elif listed == "empty":
+        rows = np.zeros(0, np.int64)
+    else:
+        dead = np.flatnonzero(~live)
+        rows = np.union1d(np.flatnonzero(flagged), dead[::3])
+        assert dead.size > 0
+    on = np.zeros(n, bool)
+    on[rows] = True
+    want = (np.where(on, mt, bt), np.where(on, mtri, btri))
+    args = (_t(r), _t(bt), _t(btri))
+    got = tcl.sweep(torch.from_numpy(rows.astype(np.int32)), *args, tcm, 256)
+    _assert_hits(want, *got)
+    full_t, full_tri = tcl.sweep(torch.arange(n, dtype=torch.int32), *args, tcm, 256)
+    assert torch.equal(got[1], torch.where(torch.from_numpy(on), full_tri, _t(btri)))
+    assert torch.equal(got[0], torch.where(torch.from_numpy(on), full_t, _t(bt)))
+
+
+@pytest.mark.parametrize("method", ["kd", "morton"])
+def test_real_slots_match_the_jax_padding(method):
+    """The per-block real-slot counts equal the padding pattern of the JAX
+    build (its padding slots copy v0 into v1 and v2, at the end of each
+    block), in the port's build and in a JAX table carried over. 1,280
+    triangles in blocks of 48: every kd leaf and the last morton block are
+    padded."""
+    mesh = _mesh(3)
+    jcm = jcl.build_cluster_mesh(mesh, block=48, method=method)
+    tcm = tcl.build_cluster_mesh(mesh, block=48, method=method, device="cpu")
+    t = jcm.tris
+    pad = ((np.asarray(t.v1) == np.asarray(t.v0)).all(1)
+           & (np.asarray(t.v2) == np.asarray(t.v0)).all(1)).reshape(-1, 48)
+    count = (~pad).sum(axis=1)
+    assert pad.any() and all(not pad[k, :c].any() for k, c in enumerate(count))  # trailing
+    want = np.concatenate([count, np.zeros(jcm.n_blocks - jcm.n_real_blocks, int)])
+    np.testing.assert_array_equal(tcm.real.numpy(), want)
+    scene = jparser.load_scene(CORNELL, build_kd=False)._replace(cmesh=jcm)
+    carried = scene_from_numpy(jax.tree.map(np.asarray, scene), "cpu").cmesh
+    np.testing.assert_array_equal(carried.real.numpy(), want)
 
 
 # --------------------------------------------------------------------------

@@ -9,8 +9,9 @@ needs more than 48 KB of shared memory, 64- to 1024-triangle blocks,
 tiles with empty feasible lists or only dead rays, 1 to 16 pair slots,
 block tables of 1024 to 8192 blocks, pair tiles that are all sentinel or
 split a run, pair supertiles of more runs than kernel 7 stages a round, triangle counts that are not a multiple of the brute
-force's block, as many rounds as blocks, a single tile, and bad
-arguments. Tolerances: slab cull, sphere cull, argmin bins, extraction
+force's block, as many rounds as blocks, a single tile, gathers of n
+not a multiple of 4 or under one thread block, the sweep in both
+launch shapes, and bad arguments. Tolerances: slab cull, sphere cull, argmin bins, extraction
 and gather-to-columns bit for bit; walk, rounds, sweep and brute-force
 triangle ids exactly and t within 1e-5 relative (their 10-term sums may
 round differently from the batched product); the pair test's loc on >= 99.9% of real
@@ -106,7 +107,12 @@ def test_walk_kernel_matches_plain(cuda, block, tile):
     assert (btri_k[-tile:] == -1).all()
 
 
-@pytest.mark.parametrize("n, c", [(1, 19), (1000, 19), (640_000, 19), (5000, 3)])
+@pytest.mark.parametrize("n, c", [
+    (1, 19), (1000, 19), (640_000, 19), (5000, 3),
+    (1001, 19), (640_003, 19),  # n % 4 != 0
+    (130, 19), (200, 19),  # less than one thread block of 256
+    (777, 1),
+])
 def test_gather_cols_kernel_bit_equal(cuda, n, c):
     g = torch.Generator(device="cpu").manual_seed(n)
     packed = torch.randn((4096, c), generator=g).to(cuda)
@@ -528,18 +534,36 @@ def test_cluster_rounds_kernel_matches_plain(cuda, block, tile, rounds, n_tiles)
     torch.testing.assert_close(bt_k, bt_p, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("block, tile", [(64, 256), (256, 1024)])
-def test_sweep_kernel_matches_plain(cuda, block, tile):
+@pytest.mark.parametrize("block, tile", [(64, 256), (256, 1024), (1024, 512)])
+@pytest.mark.parametrize("listed", ["every", "some"])
+def test_sweep_kernel_matches_plain(cuda, block, tile, listed):
+    """Both launch shapes (one pass, and the block axis split in 5 slices
+    merged by 64-bit atomics) and the shape the wrapper picks, against the
+    plain version: every ray listed, or a third of them plus some dead
+    lanes; blocks of 1024 stage in four chunks. The shapes agree bit for
+    bit (each ray's tests are the same arithmetic)."""
     cm = build_cluster_mesh(_mesh(4), block=block, device=cuda)
-    x = _records(cm, 4 * tile, tile, seed=block)
-    r, t0 = tcl._ray_rows(x), x[:, 6].contiguous()
-    before = tcl.SWEEP.launches
-    bt_k, btri_k = tcl.sweep(r, t0, cm.w, tile, block, cm.n_real_blocks)
-    bt_p, btri_p = tcl._sweep_ref(r, t0, cm.w, tile, block, cm.n_real_blocks)
-    assert tcl.SWEEP.launches == before + 1
-    assert int((btri_p >= 0).sum()) > tile
-    assert torch.equal(btri_k, btri_p)
-    torch.testing.assert_close(bt_k, bt_p, rtol=1e-5, atol=0)
+    n = 4 * tile
+    x = _records(cm, n, tile, seed=block)
+    r, bt = tcl._ray_rows(x), x[:, 6].contiguous()
+    btri = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    btri[::5] = 7  # an earlier result that the sweep keeps where it finds nothing nearer
+    rows = torch.arange(n, dtype=torch.int32, device=cuda)
+    if listed == "some":
+        rows = rows[(rows % 3 == 0) | (x[:, 7] == 0)]
+    want = tcl._sweep_ref(rows, r, bt, btri, cm.w, tile, block, cm.n_real_blocks)
+    assert int((want[1] >= 0).sum()) > rows.shape[0] // 4
+    got = {}
+    for slices in (1, 5, None):
+        before = tcl.SWEEP.launches
+        got[slices] = tcl.sweep(rows, r, bt, btri, cm, tile, slices=slices)
+        assert tcl.SWEEP.launches == before + 1
+        assert torch.equal(got[slices][1], want[1])
+        torch.testing.assert_close(got[slices][0], want[0], rtol=1e-5, atol=0)
+    for slices in (5, None):
+        assert torch.equal(got[slices][0], got[1][0]) and torch.equal(got[slices][1], got[1][1])
+    auto = tcl.SWEEP.call_int("cluster_sweep_slices", rows.shape[0], cm.n_real_blocks)
+    assert auto > 1  # a few thousand rays fill far less than two waves
 
 
 def test_cluster_wrappers_check_their_arguments(cuda):
@@ -558,10 +582,20 @@ def test_cluster_wrappers_check_their_arguments(cuda):
         tcl.cluster_rounds(sel.long(), lb, r, t0, act, cm.w, 256, 64)
     with pytest.raises(ValueError):  # 2048-triangle blocks need 320 KB
         tcl.cluster_rounds(sel, lb, r, t0, act, cm.w, 256, 2048)
-    with pytest.raises(ValueError):  # 2 rays: not 4 per thread
-        tcl.sweep(r[:2], t0[:2], cm.w, 2, 64, cm.n_real_blocks)
+    btri = torch.full((1024,), -1, dtype=torch.int32, device=cuda)
+    rows = torch.arange(0, 1024, 3, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        tcl.sweep(r, t0, cm.w, 256, 64, cm.n_blocks + 1)
+        tcl.sweep(rows.long(), r, t0, btri, cm, 256)
+    with pytest.raises(ValueError):
+        tcl.sweep(rows, r, t0, btri.float(), cm, 256)
+    with pytest.raises(ValueError):
+        tcl.sweep(rows, r, t0, btri, cm._replace(n_real_blocks=cm.n_blocks + 1), 256)
+    with pytest.raises(ValueError):
+        tcl.sweep(rows, r, t0, btri, cm._replace(real=cm.real.long()), 256)
+    before = tcl.SWEEP.launches
+    bt_e, btri_e = tcl.sweep(rows[:0], r, t0, btri, cm, 256)
+    assert torch.equal(bt_e, t0) and torch.equal(btri_e, btri)
+    assert tcl.SWEEP.launches == before
     with pytest.raises(ValueError):
         tbinned.argmin_bins(x[:, :7], cm.cull_w, cm.blk)
     before = (tcl.CULL.launches, tbinned.ARGMIN.launches)

@@ -14,7 +14,10 @@ import torch
 
 from kdtreepathtraceroptimization_tpu.scene import parser as jparser
 from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
+from kdtreepathtraceroptimization_tpu_torch.ops.cluster import real_slots
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
+from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA
+from kdtreepathtraceroptimization_tpu_torch.utils.device import to_tensor
 from kdtreepathtraceroptimization_tpu_torch.utils.procmesh import icosphere, write_obj
 
 CORNELL = os.path.join(os.path.dirname(__file__), "..", "scenes", "cornell.txt")
@@ -63,8 +66,12 @@ def assert_scene_equal(jscene, tscene):
     assert (jc is None) == (tc is None)
     if jc is None:
         return
-    # the port keeps one more field: the hit expansion's packed rows
-    assert jc._fields + ("packed",) == tc._fields
+    # the port keeps two more fields: the hit expansion's packed rows and
+    # the repair sweep's real-slot counts
+    assert jc._fields + ("packed", "real") == tc._fields
+    real = real_slots(MeshSoA(*(to_tensor(np.asarray(a), "cpu") for a in jc.tris)),
+                      int(jc.block), jc.n_blocks)
+    assert torch.equal(real, tc.real.cpu())
     np.testing.assert_array_equal(
         _np(tc.packed),
         np.concatenate([np.asarray(getattr(jc.tris, f), np.float32).reshape(
