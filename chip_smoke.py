@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--shapes]
 
 Builds the port's twelve CUDA kernels (twelve sources, one for each TPU
 kernel) from ``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per
@@ -16,12 +16,24 @@ KD walk, brute force) and its gradient path on Cornell + an
    path hands it at its second bounce: slab cull, walk and gather-to-
    columns from the walk path (slab cull and gather bit for bit, the
    gather's time against ``index_select`` and twice its bound, walk ids
-   on >= 99.99% of rays with t within 1e-5 relative); pass 1's and pass
-   2's extraction (bit for bit) and pass 1's pair test (loc on >= 99.99%
-   of real pairs, t within 2^-12 relative) from the pair path; the brute
-   force on a 16,384-ray slice of that bounce (ids on >= 99.99%, t within
-   1e-5 relative). Each with its time, its plain version's, one library
-   call's where one computes the same function, and its bound;
+   on >= 99.99% of rays with t within 1e-5 relative and, as its skips
+   are exact, t and ids equal to the plain version's on every ray, on a
+   padded table and with all-dead tiles, and its executed (tile, block)
+   rounds beside the needed ones); pass 1's and pass 2's extraction (bit for bit) and
+   pass 1's pair test (loc on >= 99.99% of real pairs, t within 2^-12
+   relative) from the pair path; the brute force on a 16,384-ray slice of
+   that bounce, rays with d = 0 among them (ids on >= 99.99%, t within
+   1e-5 relative), timed on the full bounce with the dead rays' d = 0 (as
+   the oracle calls pass them) and with their directions kept (as the
+   brute route does). Each with its time, its plain version's, one library
+   call's where one computes the same function, and its bound. The walk's
+   and the brute force's weight tables must have the zero pattern their
+   sparse test rests on (``mxu_bf.check_sparse_pattern``);
+2b. ``[shapes]``, only with ``--shapes`` (the measurement that chose the
+   launch-shape constants of kernels 2 and 8): the walk and the brute
+   force built with other launch shapes (rays a thread, threads, thread
+   blocks an SM holds) and timed on the same inputs, each equal to the
+   sources' own shape bit for bit;
 3. the pair list against the brute-force kernel on every ray of that
    bounce (640,000 rays x 131,072 triangle slots): ids on >= 99.99% of
    rays, t within 2^-12 relative (the pair list reports t truncated by
@@ -91,13 +103,16 @@ port.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -148,11 +163,21 @@ F32_FLOP_PER_S = 67e12
 # multiplies, 2 subtracts, 4 min/max; then abs, multiply, 3 add/subtract
 # for the slack, one max and 4 compares, one min into the tile bound.
 SLAB_OPS_PER_PAIR = 3 * 8 + 10
-# Float32 operations per (ray, triangle) test of the walk, the pair test
-# and the brute force: 4 ten-term dot products (40 FMAs = 80) and the
-# epilogue's 5 compares, 1 add, 1 divide and 1 compare against the running
-# best (the pair test packs and takes a min in its place).
-MT_OPS_PER_TEST = 80 + 8
+# Float32 operations per (ray, triangle) test of the walk, the pair tests,
+# the rounds, the sweep and the brute force: the function needs the 19
+# non-zero multiply-adds of the four ten-term dot products (the other 21
+# weights of every table are zero and a's three are -(three of t_num's):
+# csrc/mt_block.cuh), 19 FMAs = 38, and the epilogue's 5 compares, 1 add,
+# 1 divide and 1 compare against the running best (the pair test packs and
+# takes a min in its place). Kernels that still multiply all 40 weights do
+# more work than this bound counts.
+MT_OPS_PER_TEST = 2 * 19 + 8
+# Bytes the Moller-Trumbore kernels' bounds count: a triangle's 16
+# distinct weights, a ray's 10 features [o, d, o x d, 1] (the tables and
+# feature rows the kernels read are wider: zero weights, padding slots and
+# columns, which the function does not need).
+TRI_BYTES = 16 * 4
+RAY_FEATURE_BYTES = 10 * 4
 # Float32 operations per (live ray, real block) pair of the extraction:
 # the slab entry of the slab cull without its tile min (per axis 2
 # multiplies, 2 subtracts, 4 min/max; abs, multiply, add for the slack;
@@ -217,8 +242,26 @@ RECORD_PATH = {"slab_cull": "walk", "walk": "walk", "gather_cols": "pairs",
 # The sweep's record also gives the recorded call's listed rows and
 # slices, its one-pass time, and the full-width form's time and bound.
 SWEEP_EXTRA = ("rows", "slices", "one_pass_ms", "full_width_ms", "full_width_bound_ms")
+# The brute force's record also gives its time on the brute route's own
+# inputs (dead lanes keep their directions).
+BRUTE_EXTRA = ("path_inputs_ms",)
 # Each main path's image and its iteration count (phase_main_path).
 IMAGES = {}
+# Launch shapes [shapes] times for kernels 2 and 8: (rays a thread, threads
+# a thread block, thread blocks an SM must hold under __launch_bounds__),
+# the constants of csrc/walk.cu and csrc/mxu_bf.cu; the first is the
+# sources' own. The brute force's ray tile is rays a thread x threads.
+SHAPES = {"walk": ((1, 128, 6), (4, 256, 2), (2, 256, 2), (2, 256, 3), (4, 128, 4),
+                   (8, 128, 2), (2, 512, 1), (1, 1024, 1), (2, 128, 4), (1, 256, 4),
+                   (1, 64, 6)),
+          "mxu_bf": ((2, 512, 1), (4, 256, 2), (2, 256, 2), (2, 256, 3), (8, 128, 2),
+                     (4, 128, 4), (1, 1024, 1), (2, 128, 4), (1, 512, 2))}
+SHAPE_CONSTANTS = ("kRpt", "kThreads", "kMinBlocks")
+# The brute force's triangle blocks [shapes] also times (the wrapper's
+# default is 512).
+BRUTE_TRI_BLOCKS = (256, 1024)
+# The recorded calls [shapes] times again (phase_kernels, phase_pairs).
+SHAPE_INPUTS = {}
 # The cluster table's triangle tables that the gradient phases differentiate.
 TRI_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2")
 # The subsurface transmittance [geomgrad] gives the icosphere's material
@@ -377,18 +420,36 @@ def check_hits(label, got, want):
     return frac, (bt_k - bt_p)[same].abs().max().item()
 
 
-def needed_rounds(cm, sel, lb, bt, act, tile: int):
-    """The least work of a round loop (walk, rounds) on this data: a tile
-    must test every listed block whose entry bound lies below some live
-    ray's final t, for each of its live rays and each real triangle of
-    the block (past a tile's feasible count lb is BIG and no block is
-    needed). -> (needed (tile, block) rounds, needed tests)."""
+def needed_rounds(cm, sel, lb, bt, act, r, tile: int):
+    """The least work of a round loop (walk, rounds) on this data. A tile
+    must run every listed block whose entry bound lies below some live
+    ray's final t; within it, a live ray needs the block's real triangles
+    only if it meets the block's box before its final t (``_box_entry``:
+    the walk kernel's own test; a hit lies in its block's box). -> (needed
+    (tile, block) rounds, needed (live ray, real triangle) tests counting
+    every live ray of a needed round, the same at ray granularity: the
+    bound's count, the real triangles of the blocks some needed test at ray
+    granularity reads, each once)."""
     g = bt.shape[0] // tile
     live = act.reshape(g, tile) > 0
     worst = torch.where(live, bt.reshape(g, tile), 0.0).amax(dim=1)
     need = lb < worst[:, None]
     tris_of = cm.real[sel.long()]
-    return int(need.sum()), int((need * live.sum(dim=1, keepdim=True) * tris_of).sum())
+    tile_tests = int((need * live.sum(dim=1, keepdim=True) * tris_of).sum())
+    listed = torch.zeros((g, cm.n_blocks), dtype=torch.bool, device=bt.device)
+    listed.scatter_(1, sel.long(), lb < BIG)
+    real = cm.real.to(torch.float32)
+    ray_tests = 0
+    used = torch.zeros((cm.n_blocks,), dtype=torch.bool, device=bt.device)
+    tiles = max(1, (1 << 26) // (tile * cm.n_blocks))
+    for g0 in range(0, g, tiles):
+        rows = slice(g0 * tile, min(g, g0 + tiles) * tile)
+        entry = twalk._box_entry(r[rows, 0:3], r[rows, 3:6], cm.slab)
+        hit = ((entry < bt[rows, None]) & (act[rows, None] > 0)
+               & listed[g0:g0 + tiles].repeat_interleave(tile, dim=0))
+        ray_tests += int((hit.to(torch.float32) @ real).sum().item())
+        used |= hit.any(dim=0)
+    return int(need.sum()), tile_tests, ray_tests, int(cm.real[used].sum())
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -432,23 +493,47 @@ def phase_kernels(scene, config, device) -> dict:
     log(f"[kernels] slab_cull == plain bit for bit; {results['slab_cull']['shape']}")
 
     # -- walk: ids on >= 99.99% of rays, t within 1e-5 where they differ --
-    sel, lb, nsel, r, t0, act, w, wtile, block = rw.args
-    bt_k, btri_k = twalk.walk(sel, lb, nsel, r, t0, act, w, wtile, block)
+    sel, lb, nsel, r, t0, act, cm, wtile = rw.args
+    SHAPE_INPUTS["walk"] = rw.args
+    w, real, block, kreal = cm.w, cm.real, cm.block, cm.n_real_blocks
+    tmxu.check_sparse_pattern(w)  # the sparse test's precondition
+    padded = int((real[:kreal] < block).sum())
+    g = r.shape[0] // wtile
+    rounds = torch.zeros((g, 2), dtype=torch.int32, device=device)
+    bt_k, btri_k = twalk.walk(sel, lb, nsel, r, t0, act, cm, wtile, rounds=rounds)
     bt_p, btri_p = twalk._walk_ref(sel, lb, r, t0, act, w, wtile, block)
     sync(device)
     frac, max_err = check_hits("walk", (bt_k, btri_k), (bt_p, btri_p))
-    g = r.shape[0] // wtile
-    needed, walk_tests = needed_rounds(scene.cmesh, sel, lb, bt_p, act, wtile)
+    dead = (act.reshape(g, wtile) <= 0).all(dim=1).repeat_interleave(wtile)
+    log(f"[kernels] walk: the table is padded in {padded} of {kreal} real blocks; "
+        f"{int(dead.sum()) // wtile} all-dead tiles")
+    if not padded or not dead.any():
+        raise AssertionError("walk: the recorded call has no padded block or no all-dead tile")
+    if not (torch.equal(bt_k[dead], t0[dead]) and (btri_k[dead] == -1).all()):
+        raise AssertionError("walk: an all-dead tile's rays did not come back as (t0, -1)")
+    differ = int(((bt_k != bt_p) | (btri_k != btri_p)).sum())
+    log(f"[kernels] walk: {differ} of {r.shape[0]} rays differ from the plain version in t "
+        f"or id (the skips are exact: none may)")
+    if differ:
+        raise AssertionError(f"walk: {differ} rays differ from the plain version")
+    needed, tile_tests, walk_tests, used_tris = needed_rounds(cm, sel, lb, bt_p, act, r, wtile)
     walk_ops = walk_tests * MT_OPS_PER_TEST
-    walk_bytes = sum(a.numel() * 4 for a in (sel, lb, nsel, r, t0, act, w, bt_k, btri_k))
+    # each ray's features, t0, act and outputs; each tile's list (nsel
+    # entries of sel and lb); the real triangles the needed tests read, once
+    walk_bytes = (r.shape[0] * (RAY_FEATURE_BYTES + 4 * 4) + int(nsel.sum()) * 2 * 4
+                  + nsel.numel() * 4 + used_tris * TRI_BYTES)
     results["walk"] = dict(
         max_abs_err=max_err,
-        ms=time_ms(lambda: twalk.walk(sel, lb, nsel, r, t0, act, w, wtile, block), 10),
+        ms=time_ms(lambda: twalk.walk(sel, lb, nsel, r, t0, act, cm, wtile), 10),
         plain_ms=time_ms(lambda: twalk._walk_ref(sel, lb, r, t0, act, w, wtile, block), 3),
         library_ms=None, **bound(walk_bytes, walk_ops),
         shape=f"{g} tiles of {wtile} rays, {needed} needed (tile, block) rounds "
-              f"of {block} slots, {walk_tests} needed (live ray, real triangle) tests, "
-              f"feasible lists of mean {nsel.float().mean().item():.1f}",
+              f"of {block} slots ({int(nsel.sum())} listed; its thread blocks ran "
+              f"{int(rounds[:, 0].sum())} block rounds), {walk_tests} needed (live ray, real "
+              f"triangle) tests at ray granularity ({tile_tests} counting every live ray of a "
+              f"needed round; the kernel ran "
+              f"{32 * int(rounds[:, 1].sum())} in 32-ray groups), feasible lists of mean "
+              f"{nsel.float().mean().item():.1f}",
         ids_equal=frac,
     )
     log(f"[kernels] walk: {results['walk']['shape']}")
@@ -566,8 +651,10 @@ def phase_pairs(scene, device):
         raise AssertionError("pair_runs: a sentinel pair was not left at _PBIG")
     if loc_eq < 0.9999 or rel_max > 2.0 ** -12:
         raise AssertionError("pair_runs differs from its plain version beyond its tolerance")
-    blocks_used = int(torch.unique(blk_s[real]).numel())
-    nbytes = blk_s.numel() * 4 + featp.numel() * 4 + got.numel() * 4 + blocks_used * 16 * 4 * block * 4
+    used = torch.unique(blk_s[real].long())
+    blocks_used = int(used.numel())
+    nbytes = ((blk_s.numel() + featp.numel() + got.numel()) * 4
+              + int(args[2].real[used].sum()) * TRI_BYTES)
     # each real pair against the real triangles of its block
     pair_tests = int(args[2].real[blk_s[real].long()].sum())
     results["pair_runs"] = dict(
@@ -593,18 +680,24 @@ def phase_pairs(scene, device):
     idx = torch.arange(0, origin.shape[0], origin.shape[0] // BRUTE_SLICE,
                        device=device)[:BRUTE_SLICE]
     o_s, d_s, t_s = origin[idx], d_live[idx], t_init[idx]
-    got = tmxu.intersect_brute_mxu(o_s, d_s, mesh.v0, mesh.v1, mesh.v2, t_max=t_s)
+    with Recorder(tmxu, "sparse_weights", 0) as rsw:
+        got = tmxu.intersect_brute_mxu(o_s, d_s, mesh.v0, mesh.v1, mesh.v2, t_max=t_s)
     want = tmxu.intersect_brute_mxu_ref(o_s, d_s, mesh.v0, mesh.v1, mesh.v2, t_max=t_s, block=512)
     sync(device)
+    tmxu.check_sparse_pattern(rsw.args[0])  # the sparse test's precondition
     same = got.tri == want.tri
     frac = same.float().mean().item()
     both = (got.tri >= 0) & (want.tri >= 0)
     rel = ((got.t - want.t).abs() / want.t.abs().clamp_min(1e-30))[both]
-    log(f"[kernels] mxu_bf on {BRUTE_SLICE} rays of bounce 1 x {mesh.v0.shape[0]} triangles: "
-        f"{int((want.tri >= 0).sum())} hits; ids equal on {frac:.6%}; max |dt|/t "
+    still = (d_s == 0).all(dim=1)  # d = 0: sorted to the back, where whole tiles skip
+    log(f"[kernels] mxu_bf on {BRUTE_SLICE} rays of bounce 1 ({int(still.sum())} with d = 0) x "
+        f"{mesh.v0.shape[0]} triangles: {int((want.tri >= 0).sum())} hits; ids equal on "
+        f"{frac:.6%}; max |dt| {(got.t - want.t)[both].abs().max().item():.3g}, max |dt|/t "
         f"{rel.max().item():.3g} where both hit")
     if frac < 0.9999 or rel.max().item() > 1e-5:
         raise AssertionError("mxu_bf differs from its plain version beyond its tolerance")
+    if int(still.sum()) < 1024 or (got.tri[still] != -1).any():
+        raise AssertionError("mxu_bf: fewer than a tile of d = 0 rays, or one of them hit")
 
     def brute():
         return tmxu.intersect_brute_mxu(origin, d_live, mesh.v0, mesh.v1, mesh.v2, t_max=t_init)
@@ -613,24 +706,137 @@ def phase_pairs(scene, device):
         return tmxu.intersect_brute_mxu_ref(origin, d_live, mesh.v0, mesh.v1, mesh.v2,
                                             t_max=t_init, block=512)
 
+    SHAPE_INPUTS["mxu_bf"] = (origin, d_live, mesh.v0, mesh.v1, mesh.v2, t_init)
     t = time.perf_counter()
     brute_plain()
     sync(device)
     plain_ms = (time.perf_counter() - t) * 1e3
     nrays = origin.shape[0]
     live_rays = int(active.sum())  # dead rays (d = 0) never hit
-    nbytes = nrays * (16 + 1 + 2) * 4 + mesh.v0.shape[0] * 16 * 4 * 4
+    nbytes = nrays * (RAY_FEATURE_BYTES + 3 * 4) + mesh.v0.shape[0] * TRI_BYTES
     results["mxu_bf"] = dict(
         max_abs_err=(got.t - want.t)[same & (want.tri >= 0)].abs().max().item(),
         ms=time_ms(brute, 3), plain_ms=plain_ms, library_ms=None,
         **bound(nbytes, live_rays * mesh.v0.shape[0] * MT_OPS_PER_TEST),
+        # the brute route's own call: its dead lanes keep their directions
+        # (the integrator passes no active), so no tile of them skips
+        path_inputs_ms=time_ms(lambda: tmxu.intersect_brute_mxu(
+            origin, direction, mesh.v0, mesh.v1, mesh.v2, t_max=t_init), 3),
         shape=f"{nrays} rays ({live_rays} live) x {mesh.v0.shape[0]} triangles in blocks of 512")
     r = results["mxu_bf"]
-    log(f"[kernels] mxu_bf: {r['shape']}; kernel {r['ms']:.2f} ms, plain {r['plain_ms']:.2f} ms "
-        f"(one call), bound {r['bound_ms']:.2f} ms ({r['bound_by']})")
+    log(f"[kernels] mxu_bf: {r['shape']}; kernel {r['ms']:.2f} ms with the dead rays' d = 0 "
+        f"(the oracle calls' inputs), {r['path_inputs_ms']:.2f} ms with their directions kept "
+        f"(the brute route's), plain {r['plain_ms']:.2f} ms (one call), bound "
+        f"{r['bound_ms']:.2f} ms ({r['bound_by']})")
     log("[kernels] library_ms is null for pair_extract, pair_runs and mxu_bf: no one PyTorch "
         "call computes a masked first-minimum (or top-F selection) over each ray's own blocks")
     return results, stats
+
+
+def ptxas_summary(text: str) -> str:
+    """"registers (spill stores/loads bytes)" of each entry function in
+    one source's ``nvcc -Xptxas -v`` output, in order."""
+    regs = re.findall(r"Used (\d+) registers", text)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+    return ", ".join(f"{r} ({a}/{b})" for r, (a, b) in zip(regs, spills))
+
+
+def build_shapes() -> dict:
+    """Copies of csrc/walk.cu and csrc/mxu_bf.cu with the other SHAPES'
+    constants, one nvcc each, all at once -> {(name, shape): (build
+    directory, ptxas summary)}: each directory holds the library under the
+    name ``cuda_build.library_path`` gives the source's own build, so that
+    a CudaKernel loads it while ``cuda_build.BUILD_DIR`` names that
+    directory. The sources' own shape must be SHAPES[name][0]."""
+    out_dir = os.path.join(WORK, "shapes")
+    jobs = {}
+    for name, shapes in SHAPES.items():
+        text = (cuda_build.CSRC / f"{name}.cu").read_text()
+        own = tuple(int(re.search(rf"constexpr int {c} = (\d+);", text).group(1))
+                    for c in SHAPE_CONSTANTS)
+        if own != shapes[0]:
+            raise AssertionError(f"{name}.cu's shape {own} is not SHAPES' first {shapes[0]}")
+        for shape in shapes[1:]:
+            src = text
+            for const, value in zip(SHAPE_CONSTANTS, shape):
+                src = re.sub(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};",
+                             src)
+            build_dir = os.path.join(out_dir, f"{name}_{'_'.join(map(str, shape))}")
+            os.makedirs(build_dir, exist_ok=True)
+            src_path = os.path.join(build_dir, f"{name}.cu")
+            with open(src_path, "w") as f:
+                f.write(src)
+            lib = os.path.join(build_dir, cuda_build.library_path(name).name)
+            jobs[(name, shape)] = (build_dir, subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC), "-o",
+                 lib, src_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for key, (build_dir, proc) in jobs.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"nvcc failed for the {key} shape:\n{text}")
+        out[key] = (build_dir, ptxas_summary(text))
+    return out
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """``module.name`` is ``value`` while the block runs."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def phase_shapes(own_logs: dict) -> None:
+    """Kernels 2 and 8 in each of SHAPES, on the recorded calls of
+    phase_kernels (the walk path's bounce 1) and phase_pairs (the brute
+    force's full bounce): device ms and registers, and the outputs equal
+    to the sources' own shape's bit for bit (a ray's result does not
+    depend on the shape). The brute force also at other triangle blocks."""
+    t = time.perf_counter()
+    built = build_shapes()
+    log(f"[shapes] {len(built)} shape builds in {time.perf_counter() - t:.1f} s")
+    walk_args = SHAPE_INPUTS["walk"]
+    origin, d_live, v0, v1, v2, t_init = SHAPE_INPUTS["mxu_bf"]
+    calls = {
+        "walk": (twalk, "WALK", lambda shape: twalk.walk(*walk_args)),
+        "mxu_bf": (tmxu, "BF", lambda shape: tmxu.intersect_brute_mxu(
+            origin, d_live, v0, v1, v2, t_max=t_init, ray_tile=shape[0] * shape[1])),
+    }
+    for name, shapes in SHAPES.items():
+        module, attr, call = calls[name]
+        own = getattr(module, attr)
+        want = None
+        for shape in shapes:
+            if shape == shapes[0]:
+                kernel, regs = own, ptxas_summary(own_logs.get(name, ""))
+            else:
+                build_dir, regs = built[(name, shape)]
+                kernel = cuda_build.CudaKernel(own.source, own.symbol, own.argtypes[:-1])
+                with swapped(cuda_build, "BUILD_DIR", Path(build_dir)):
+                    kernel._function()  # loads the shape's build
+            with swapped(module, attr, kernel):
+                got = call(shape)
+                ms = time_ms(lambda: call(shape), 5 if name == "walk" else 3)
+            got = (got[0], got[1]) if name == "walk" else (got.t, got.tri)
+            sync(origin.device)
+            if want is None:
+                want = got
+            elif not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"[shapes] {name} {shape} differs from {shapes[0]}")
+            log(f"[shapes] {name} {shape[0]} rays x {shape[1]} threads, {shape[2]} blocks/SM: "
+                f"{ms:.3f} ms; registers (spill stores/loads) {regs or 'not built here'}")
+    for block in BRUTE_TRI_BLOCKS:
+        got = tmxu.intersect_brute_mxu(origin, d_live, v0, v1, v2, t_max=t_init,
+                                       tri_block=block)
+        ms = time_ms(lambda: tmxu.intersect_brute_mxu(origin, d_live, v0, v1, v2, t_max=t_init,
+                                                      tri_block=block), 3)
+        sync(origin.device)
+        log(f"[shapes] mxu_bf triangle blocks of {block}: {ms:.3f} ms; ids equal to blocks of "
+            f"512 on {(got.tri == want[1]).float().mean().item():.6%}")
 
 
 def brute_check(label, hit, args, kwargs, rtol: float = 1e-5) -> None:
@@ -683,10 +889,11 @@ def check_rounds(args, cm) -> dict:
     want = tcl._cluster_ref(sel, lb, r, t0, act, w, tile, block, sel.shape[1])
     sync(r.device)
     frac, max_err = check_hits("cluster_rounds", got, want)
-    needed, tests = needed_rounds(cm, sel, lb, want[0], act, tile)
-    listed = torch.unique(sel[lb < BIG])
-    nbytes = (sum(a.numel() for a in (sel, lb, r, t0, act, *got))
-              + listed.numel() * 16 * 4 * block) * 4
+    needed, tile_tests, tests, used_tris = needed_rounds(cm, sel, lb, want[0], act, r, tile)
+    # each ray's features, t0, act and outputs; the listed entries of sel
+    # and lb; the real triangles the needed tests read, once
+    nbytes = (r.shape[0] * (RAY_FEATURE_BYTES + 4 * 4) + int((lb < BIG).sum()) * 2 * 4
+              + used_tris * TRI_BYTES)
     res = dict(max_abs_err=max_err,
                ms=time_ms(lambda: tcl.cluster_rounds(sel, lb, r, t0, act, w, tile, block), 10),
                plain_ms=time_ms(lambda: tcl._cluster_ref(sel, lb, r, t0, act, w, tile, block,
@@ -694,7 +901,8 @@ def check_rounds(args, cm) -> dict:
                library_ms=None, **bound(nbytes, tests * MT_OPS_PER_TEST),
                shape=f"{sel.shape[0]} tiles of {tile} rays, {sel.shape[1]} rounds, {needed} "
                      f"needed (tile, block) rounds of {block} slots, {tests} needed (live ray, "
-                     f"real triangle) tests, feasible lists of mean "
+                     f"real triangle) tests at ray granularity ({tile_tests} counting every live "
+                     f"ray of a needed round), feasible lists of mean "
                      f"{(lb < BIG).sum(dim=1).float().mean().item():.1f}", ids_equal=frac)
     log(f"[kernels] cluster_rounds: {res['shape']}")
     return res
@@ -703,11 +911,11 @@ def check_rounds(args, cm) -> dict:
 def sweep_bound(r, rows, cm) -> dict:
     """The least time of a sweep of ``rows``: each listed live ray (dead
     lanes have d = 0) against each real triangle, MT_OPS_PER_TEST
-    operations a test; bytes: the listed rays' features, bounds and ids,
-    the real triangles' 160-byte records, and the outputs."""
+    operations a test; bytes: the listed rays' row ids, features, bounds
+    and ids, the real triangles' weights, and the outputs."""
     live = int((r[rows.long(), 3:6] != 0).any(dim=1).sum())
     tris = int(cm.real.sum())
-    nbytes = rows.numel() * (16 + 2 + 1) * 4 + tris * 160 + 2 * rows.numel() * 4
+    nbytes = rows.numel() * (RAY_FEATURE_BYTES + (1 + 2 + 2) * 4) + tris * TRI_BYTES
     return dict(live=live, tris=tris, **bound(nbytes, live * tris * MT_OPS_PER_TEST))
 
 
@@ -880,9 +1088,10 @@ def phase_bdiag(scene, device) -> dict:
         raise AssertionError("pair_bdiag: a sentinel pair was not left at _PBIG")
     if loc_eq < 0.9999 or rel_max > 2.0 ** -12:
         raise AssertionError("pair_bdiag differs from its plain version beyond its tolerance")
-    blocks_used = int(torch.unique(blk_s[real]).numel())
-    nbytes = (blk_s.numel() + featp.numel() + got.numel()
-              + blocks_used * 16 * 4 * block) * 4
+    used = torch.unique(blk_s[real].long())
+    blocks_used = int(used.numel())
+    nbytes = ((blk_s.numel() + featp.numel() + got.numel()) * 4
+              + int(args[2].real[used].sum()) * TRI_BYTES)
     pair_tests = int(args[2].real[blk_s[real].long()].sum())
     res = dict(
         max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
@@ -1353,6 +1562,10 @@ def phase_gradcheck(device) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
+    parser.add_argument("--shapes", action="store_true",
+                        help="also time kernels 2 and 8 in the other launch shapes of SHAPES")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1368,6 +1581,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {line.strip()}")
+    log("[build] registers (spill stores/loads, bytes) per entry function: " + "; ".join(
+        f"{name} {ptxas_summary(text)}" for name, text in logs.items()))
     t = time.perf_counter()
     if load_native() is None:
         raise AssertionError("the native KD builder did not build (g++ missing?)")
@@ -1387,6 +1602,10 @@ def main() -> int:
     pair_results, _ = phase_pairs(scene, device)
     results.update(pair_results)
     phase_done("pairs")
+    if args.shapes:
+        phase_shapes(logs)
+        phase_done("shapes")
+    SHAPE_INPUTS.clear()  # the main paths' peak memory must not count these
     results["pair_bdiag"] = phase_bdiag(scene, device)
     phase_done("bdiag")
     results.update(phase_cluster(scene, device))
@@ -1422,7 +1641,7 @@ def main() -> int:
                                  RenderConfig(trace_depth=2, antialias=True, enable_kd=False,
                                               cluster_auto=False),
                                  device, ("mxu_bf", "gather_cols"), block=1,
-                                 timed_calls=1, profile=False),
+                                 timed_calls=1),
         "pairs_bdiag": phase_main_path("pairs_bdiag", scene,
                                        RenderConfig(trace_depth=8, antialias=True,
                                                     pair_bdiag=True),
@@ -1460,7 +1679,7 @@ def main() -> int:
              launches=paths[record_path[name]][name],
              **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")},
-             **{k: results[name][k] for k in SWEEP_EXTRA if k in results[name]})
+             **{k: results[name][k] for k in SWEEP_EXTRA + BRUTE_EXTRA if k in results[name]})
         for name, _, source, replaces in KERNELS
     ]}
     log(f"[card] {card}")

@@ -56,15 +56,6 @@ constexpr int kThreads = 256;
 constexpr int kSmemBytes = (kRawFloats + kChunk * mt::kTriFloats) * (int)sizeof(float);
 constexpr uint64_t kNoHit = ~0ull;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // The chunk of block k that starts at slot j0: ntri triangles.
 struct Chunk {
   int k, j0, ntri;
@@ -93,7 +84,8 @@ __device__ __forceinline__ void stage(float* raw, const float* __restrict__ w, C
     const int x = v - i * n4;
     const int q = i / mt::kFeat;
     const int f = i - q * mt::kFeat;
-    cp_async16(raw + i * kRawStride + 4 * x, wk + (size_t)f * 4 * block + q * block + 4 * x);
+    mt::cp_async16(raw + i * kRawStride + 4 * x,
+                   wk + (size_t)f * 4 * block + q * block + 4 * x);
   }
 }
 
@@ -127,7 +119,7 @@ cluster_sweep_kernel(const int* __restrict__ rows, int m, const float* __restric
 
   Chunk cur = chunk_at(real, k0, 0, k1);
   if (cur.ntri) stage(raw, w, cur, block);
-  cp_async_commit();
+  mt::cp_async_commit();
 
   float rf[kRpt][mt::kFeat];
   float bt[kRpt];
@@ -145,13 +137,13 @@ cluster_sweep_kernel(const int* __restrict__ rows, int m, const float* __restric
   }
 
   while (cur.ntri) {
-    cp_async_wait_all();
+    mt::cp_async_wait_all();
     __syncthreads();  // raw holds this chunk; every thread is done with tb
     transpose(tb, raw, cur.ntri);
     __syncthreads();  // tb holds this chunk; raw is free
     const Chunk next = chunk_at(real, cur.k, cur.j0 + kChunk, k1);
     if (next.ntri) stage(raw, w, next, block);  // arrives while this chunk is tested
-    cp_async_commit();
+    mt::cp_async_commit();
     const int id0 = cur.k * block + cur.j0;
     for (int j = 0; j < cur.ntri; ++j) {
       float wj[mt::kTriFloats];

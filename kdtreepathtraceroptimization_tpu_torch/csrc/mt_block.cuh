@@ -1,10 +1,11 @@
 // One block of triangles' Moller-Trumbore weights in shared memory, and
 // the test of one ray against one staged triangle.
 //
-// Shared by pair_runs.cu, mxu_bf.cu, cluster_rounds.cu and
-// cluster_sweep.cu. walk.cu keeps its own copy of the same code: built from
-// this header, nvcc scheduled the walk's loops differently and the walk ran
-// slower on the H100, with identical results.
+// The dense form (stage_block, load_tri, accept) is shared by
+// pair_runs.cu, pair_bdiag.cu, cluster_rounds.cu and cluster_sweep.cu; the
+// sparse form (sparse_run, load_sparse, sparse_accept) by walk.cu and
+// mxu_bf.cu; the cp.async helpers by walk.cu, mxu_bf.cu and
+// cluster_sweep.cu.
 //
 // A weight block is the cluster table's [16, 4B] layout (ops/cluster.py,
 // ops/mxu_bf.py): for triangle j, column j holds a's weights, column B + j
@@ -12,6 +13,17 @@
 // features r = [o, d, o x d, 1] dotted with a column give that quantity,
 // and the epilogue of ops/mxu_bf.py (_epilogue) accepts a > eps, u, v >= 0,
 // u + v <= a and t >= 0.
+//
+// The sparse form rests on the weight tables' zero pattern (ops/mxu_bf.py
+// tri_weights, ops/cluster.py build_cluster_mesh; mxu_bf.check_sparse_pattern
+// checks it): only 19 of a triangle's 40 weights can be non-zero, a's rows
+// 3-5 (-n), t_num's rows 0-2 (n) and 9 (-c), and u_num's and v_num's rows
+// 3-8; and a's three equal -(t_num's rows 0-2). So a triangle is 16
+// distinct floats, and sparse_accept runs only the 19 non-zero FMAs, in
+// the order of the dense chain (dot10). A dropped term fmaf(r, 0, acc)
+// leaves acc unchanged but for the sign of a zero, which no accept test
+// sees, and -(x y) rounds as (-x) y: the sparse test gives the dense
+// test's a, t_num, u_num and v_num, hence the same hits and t.
 
 #pragma once
 
@@ -83,6 +95,71 @@ __device__ __forceinline__ bool accept(const float* rf, const float* wj, float& 
   const float vn = dot10(rf, wj + 3 * kFeat);
   return (a > kCullEps) && (un >= 0.f) && (vn >= 0.f) && (__fadd_rn(un, vn) <= a) &&
          (tn >= 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// The sparse form: a triangle's 16 distinct weights, in this order:
+//   0-2  t_num rows 0-2 (n; a's rows 3-5 are their negation)
+//   3    t_num row 9 (-c)
+//   4-9  u_num rows 3-8
+//   10-15 v_num rows 3-8
+// ---------------------------------------------------------------------------
+
+constexpr int kSparse = 16;  // distinct weights of one triangle
+
+// Offset of sparse weight i's run (its B slots) in a [16, 4B] weight block.
+__device__ __forceinline__ int sparse_run(int i, int block) {
+  const int q = i < 4 ? 1 : (i < 10 ? 2 : 3);                   // t_num, u_num, v_num
+  const int f = i < 3 ? i : (i == 3 ? 9 : (i < 10 ? i - 1 : i - 7));  // feature row
+  return f * 4 * block + q * block;
+}
+
+// Triangle j's 16 weights from a [triangles, 16] staged table (four float4
+// loads; every thread reads the same address at once: a broadcast).
+__device__ __forceinline__ void load_sparse(const float4* tb4, int j, float* wj) {
+#pragma unroll
+  for (int v = 0; v < kSparse / 4; ++v) {
+    const float4 p = tb4[j * (kSparse / 4) + v];
+    wj[4 * v + 0] = p.x;
+    wj[4 * v + 1] = p.y;
+    wj[4 * v + 2] = p.z;
+    wj[4 * v + 3] = p.w;
+  }
+}
+
+// accept() on the 16 distinct weights: the 19 non-zero FMAs of the dense
+// chains in their order. a = -(n . d): the dense chain multiplies d by -n
+// term by term, and rounding to nearest is symmetric, so negating the sum
+// of d n gives the same float.
+__device__ __forceinline__ bool sparse_accept(const float* rf, const float* wj, float& a,
+                                              float& tn) {
+  a = -fmaf(rf[5], wj[2], fmaf(rf[4], wj[1], rf[3] * wj[0]));
+  tn = fmaf(rf[9], wj[3], fmaf(rf[2], wj[2], fmaf(rf[1], wj[1], rf[0] * wj[0])));
+  float un = rf[3] * wj[4];
+  float vn = rf[3] * wj[10];
+#pragma unroll
+  for (int f = 4; f < 9; ++f) {
+    un = fmaf(rf[f], wj[f + 1], un);
+    vn = fmaf(rf[f], wj[f + 7], vn);
+  }
+  return (a > kCullEps) && (un >= 0.f) && (vn >= 0.f) && (__fadd_rn(un, vn) <= a) &&
+         (tn >= 0.f);
+}
+
+// Asynchronous copies from global to shared memory (cp.async): 16 bytes
+// (both addresses 16-byte aligned) or 4 bytes; a commit closes a group,
+// and wait_all waits for every group this thread issued.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace mt

@@ -9,6 +9,12 @@ per block (``ops/cluster.py``); the walk, pair and brute-force kernels
 evaluate the same product and epilogue per ray (``csrc/walk.cu``,
 ``csrc/mt_block.cuh``).
 
+Only 19 of a triangle's 40 weights can be non-zero, and a's three are
+the negation of three of t_num's (``SPARSE_ORDER``,
+``check_sparse_pattern``): the walk and brute-force kernels stage a
+triangle's 16 distinct weights (``sparse_weights``) and run only the
+non-zero multiply-adds, with the same results (``csrc/mt_block.cuh``).
+
 The brute force tests every ray against every triangle: the plain
 version ``intersect_brute_mxu_ref`` one triangle block at a time with a
 matrix product, the kernel wrapper ``intersect_brute_mxu`` with kernel 8
@@ -29,7 +35,7 @@ from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, Cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-BF = CudaKernel("mxu_bf", "mxu_bf", [_P, _P, _P, _P, _P, _I, _I, _I, _I])
+BF = CudaKernel("mxu_bf", "mxu_bf", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
 
 # glm::intersectRayTriangle backface-cull epsilon (intersect.inl, used
 # by the reference at every leaf, e.g. pathtrace.cu:1130).
@@ -73,6 +79,52 @@ def tri_weights(v0, v1, v2) -> torch.Tensor:
     w_u = torch.cat([z3, -e2xv0, e2, z1], dim=1)
     w_v = torch.cat([z3, -v0xe1, -e1, z1], dim=1)
     return torch.cat([w_a, w_t, w_u, w_v], dim=0).T
+
+
+# The (quantity, feature row) of a triangle's 16 distinct weights, in the
+# order the sparse kernels stage them (csrc/mt_block.cuh); quantities 0-3
+# are a, t_num, u_num, v_num. a's own weights, rows 3-5, are the negation
+# of t_num's rows 0-2.
+SPARSE_ORDER = ((1, 0), (1, 1), (1, 2), (1, 9),
+                *((2, f) for f in range(3, 9)), *((3, f) for f in range(3, 9)))
+_NONZERO = ((0, 3), (0, 4), (0, 5)) + SPARSE_ORDER
+
+
+def check_sparse_pattern(w: torch.Tensor) -> None:
+    """Raise ValueError unless the weight blocks ``w`` [K, F >= 10, 4B]
+    (``_block_weights``, the cluster table) have the weight tables' zero
+    pattern: non-zero only in the 19 places ``_NONZERO`` lists, and a's
+    rows 3-5 equal to -(t_num's rows 0-2) (bit for bit but the sign of a
+    zero). The sparse kernels' precondition."""
+    k, f, cols = w.shape
+    w4 = w.reshape(k, f, 4, cols // 4)
+    allowed = torch.zeros((f, 4), dtype=torch.bool, device=w.device)
+    for q, row in _NONZERO:
+        allowed[row, q] = True
+    stray = int((w4[:, ~allowed, :] != 0).sum())
+    if stray:
+        raise ValueError(f"{stray} weights outside the 19 non-zero places")
+    if not torch.equal(w4[:, 3:6, 0, :], -w4[:, 0:3, 1, :]):
+        raise ValueError("a's rows 3-5 are not -(t_num's rows 0-2)")
+
+
+def sparse_weights(w: torch.Tensor) -> torch.Tensor:
+    """[K, F, 4B] weight blocks -> [K, B, 16]: each triangle's 16 distinct
+    weights in ``SPARSE_ORDER``, contiguous."""
+    k, f, cols = w.shape
+    w4 = w.reshape(k, f, 4, cols // 4)
+    return torch.stack([w4[:, row, q, :] for q, row in SPARSE_ORDER], dim=-1).contiguous()
+
+
+def live_first(direction: torch.Tensor):
+    """(perm, inv) [n]: ``perm`` lists the rays with a direction first and
+    those with d = 0 (which never hit) after them, each in order; ``inv``
+    undoes it (``x[perm][inv]`` is ``x``)."""
+    dead = (direction == 0).all(dim=1)
+    perm = torch.sort(dead.to(torch.uint8), stable=True).indices
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return perm, inv
 
 
 def _epilogue(prod: torch.Tensor, tb: int, t_best: torch.Tensor) -> torch.Tensor:
@@ -145,9 +197,10 @@ def intersect_brute_mxu_ref(origin, direction, v0, v1, v2, t_max=None,
 def intersect_brute_mxu(origin, direction, v0, v1, v2, t_max=None,
                         ray_tile: int = 1024, tri_block: int = 512) -> TriHit:
     """Brute force with kernel 8: every ray tile against every triangle
-    block. Rays are padded to ``ray_tile`` with dead ones (d = 0, so every
-    a = 0) and triangles to ``tri_block`` with degenerate ones. CPU tensors
-    take the plain version at the same block size."""
+    block. Rays with d = 0 (they never hit) are sorted to the back, where
+    whole tiles of them skip the tests; rays are padded to ``ray_tile``
+    with such rays and triangles to ``tri_block`` with degenerate ones.
+    CPU tensors take the plain version at the same block size."""
     if origin.device.type == "cpu":
         return intersect_brute_mxu_ref(origin, direction, v0, v1, v2, t_max,
                                        block=tri_block)
@@ -155,33 +208,33 @@ def intersect_brute_mxu(origin, direction, v0, v1, v2, t_max=None,
         raise ValueError(f"intersect_brute_mxu runs on CUDA or CPU tensors, not {origin.device}")
     device = origin.device
     rpt = BF.call_int("mxu_bf_rays_per_thread")
-    if (ray_tile % rpt or ray_tile // rpt > 1024
-            or 40 * tri_block * 4 > MAX_SMEM):
+    if (ray_tile <= 0 or ray_tile % rpt or ray_tile > BF.call_int("mxu_bf_max_tile")
+            or tri_block <= 0 or BF.call_int("mxu_bf_smem_bytes", tri_block) > MAX_SMEM):
         raise ValueError(f"intersect_brute_mxu: bad ray tile {ray_tile} / "
                          f"triangle block {tri_block}")
     n = origin.shape[0]
+    ntri = v0.shape[0]
     npad = (-n) % ray_tile
     origin, vs = _centered(origin, v0, v1, v2, tri_block)
+    direction = direction.to(torch.float32)
+    t0 = (torch.full((n,), BIG, dtype=torch.float32, device=device) if t_max is None
+          else t_max.to(torch.float32))
+    perm, inv = live_first(direction)
     z3 = torch.zeros((npad, 3), dtype=torch.float32, device=device)
-    origin = torch.cat([origin, z3])
-    direction = torch.cat([direction.to(torch.float32), z3])
+    origin = torch.cat([origin[perm], z3])
+    direction = torch.cat([direction[perm], z3])
+    t0 = torch.cat([t0[perm], torch.full((npad,), BIG, dtype=torch.float32, device=device)])
     r = torch.cat([ray_features(origin, direction),
                    torch.zeros((n + npad, 6), dtype=torch.float32, device=device)],
                   dim=1)
-    w = _block_weights(vs, tri_block)
-    nb = w.shape[0]
-    # Feature rows 10-15 are zero: [16, 4B] blocks, the cluster table's layout.
-    w = torch.cat([w, torch.zeros((nb, 6, 4 * tri_block), dtype=torch.float32,
-                                  device=device)], dim=1)
-    t0 = torch.full((n + npad,), BIG, dtype=torch.float32, device=device)
-    if t_max is not None:
-        t0[:n] = t_max
+    ws = sparse_weights(_block_weights(vs, tri_block))
+    nb = ws.shape[0]
     bt = torch.empty((n + npad,), dtype=torch.float32, device=device)
     btri = torch.empty((n + npad,), dtype=torch.int32, device=device)
     if n:
-        BF.launch(device, r.data_ptr(), w.data_ptr(), t0.data_ptr(),
-                  bt.data_ptr(), btri.data_ptr(), n + npad, nb, ray_tile, tri_block)
-    bt, btri = bt[:n], btri[:n]
+        BF.launch(device, r.data_ptr(), ws.data_ptr(), t0.data_ptr(), bt.data_ptr(),
+                  btri.data_ptr(), n + npad, ntri, nb, ray_tile, tri_block)
+    bt, btri = bt[:n][inv], btri[:n][inv]
     bt = torch.where(btri >= 0, bt, BIG)
     zero = torch.zeros((n,), dtype=torch.float32, device=device)
     return TriHit(t=bt, tri=btri, u=zero, v=zero)

@@ -471,7 +471,7 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
             r3 = torch.cat([r3, torch.zeros((m3, 6), dtype=torch.float32, device=device)],
                            dim=1)
             t3, tri3 = wk.walk(sel, lb, nsel, r3, x3[:, 6].contiguous(),
-                               x3[:, 7].contiguous(), cm.w, tile3, cm.block)
+                               x3[:, 7].contiguous(), cm, tile3)
             upd = live & (tri3 >= 0)
             bt, btri = _scatter_slice(
                 pos3p, k, m3,

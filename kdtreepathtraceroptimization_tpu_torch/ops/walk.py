@@ -11,7 +11,9 @@ ported to CUDA (``csrc/slab_cull.cu``, ``csrc/walk.cu``). Per call:
      bounds into every block;
   3. full select: each tile's feasible blocks in entry order, plus count;
   4. walk (kernel 2): per tile, the blocks in that order with a running
-     nearest hit, stopping once no live ray can beat the next entry bound;
+     nearest hit, each ray taking part while its own box entry lies below
+     its best t, and the tile stopping once no live ray can beat the next
+     entry bound;
   5. un-sort the results.
 
 The result equals brute force over the mesh: every block a hit could lie
@@ -39,8 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 SLAB_CULL = CudaKernel("slab_cull", "slab_cull", [_P, _P, _P, _P, _I, _I, _I])
-WALK = CudaKernel("walk", "walk",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
+WALK = CudaKernel("walk", "walk", [_P] * 13 + [_I] * 4)
 
 # Elements of [rays, blocks] entries the plain slab cull makes at once.
 _REF_CHUNK_ELEMS = 1 << 26
@@ -144,6 +145,39 @@ def _full_select(tile_entry):
     return sel, lb, (lb < BIG).sum(dim=1, dtype=torch.int32)[:, None]
 
 
+# The walk kernel's box test widens each block's box by BOX_MARGIN_REL of
+# its largest extent plus BOX_MARGIN_ABS (csrc/walk.cu box_margin): far
+# above the rounding of the test, so that every accepted hit in the block
+# lies inside the widened box.
+BOX_MARGIN_REL = 1e-3
+BOX_MARGIN_ABS = 1e-4
+
+
+def _box_entry(o, d, slab):
+    """[n] rays x [K] boxes -> [n, K]: the least t >= 0 at which each ray
+    meets each block's box widened by the margin, inf where it never does.
+    The plain form of the walk kernel's per-ray skip (csrc/walk.cu
+    meets_box(..., t) is ``_box_entry(...) <= t``), in the same float32
+    operations: an axis with d = 0 is a containment test, the others slabs
+    through 1 / d; fmax and fmin pass over a NaN as fmaxf and fminf do."""
+    lo, hi = slab[0:3], slab[3:6]
+    m = BOX_MARGIN_REL * (hi - lo).amax(dim=0) + BOX_MARGIN_ABS
+    n = o.shape[0]
+    t_in = torch.zeros((n, lo.shape[1]), dtype=torch.float32, device=o.device)
+    t_out = torch.full_like(t_in, torch.inf)
+    inside = torch.ones_like(t_in, dtype=torch.bool)
+    for a in range(3):
+        l, h = lo[a] - m, hi[a] + m
+        oa, da = o[:, a:a + 1], d[:, a:a + 1]
+        still = da == 0.0
+        inv = torch.where(still, 0.0, 1.0 / da)
+        t1, t2 = (l - oa) * inv, (h - oa) * inv
+        inside &= ~still | ((oa >= l) & (oa <= h))
+        t_in = torch.where(still, t_in, torch.fmax(t_in, torch.fmin(t1, t2)))
+        t_out = torch.where(still, t_out, torch.fmin(t_out, torch.fmax(t1, t2)))
+    return torch.where(inside & (t_in <= t_out), t_in, torch.inf)
+
+
 def _walk_ref(sel, lb, r, t0, act, w, tile: int, block: int):
     """Plain walk: the round loop over every listed round, each tile
     skipping the rounds no live ray of it can still improve in, which
@@ -151,19 +185,27 @@ def _walk_ref(sel, lb, r, t0, act, w, tile: int, block: int):
     return cl._cluster_ref(sel, lb, r, t0, act, w, tile, block, sel.shape[1])
 
 
-def walk(sel, lb, nsel, r, t0, act, w, tile: int, block: int):
-    """Per-tile entry-ordered block walk (kernel 2) -> (bt [n], btri [n]):
-    each ray's nearest t below its t0 and that triangle's id (-1 = none)."""
+def walk(sel, lb, nsel, r, t0, act, cm: "cl.ClusterMesh", tile: int, rounds=None):
+    """Per-tile entry-ordered block walk (kernel 2) over the cluster table
+    ``cm`` -> (bt [n], btri [n]): each ray's nearest t below its t0 and
+    that triangle's id (-1 = none).
+
+    The kernel tests only each block's real slots (``cm.real``), and a ray
+    only against the blocks whose box (``cm.slab``) it enters before its
+    best t. Unless None, ``rounds`` [n / tile, 2] int32 gains, per tile,
+    the rounds its thread blocks ran and the (32-ray group, real slot)
+    tests they ran (kernel only: a measurement, which the render passes
+    as None)."""
     if r.device.type == "cpu":
-        return _walk_ref(sel, lb, r, t0, act, w, tile, block)
+        return _walk_ref(sel, lb, r, t0, act, cm.w, tile, cm.block)
     if r.device.type != "cuda":
         raise ValueError(f"walk runs on CUDA or CPU tensors, not {r.device}")
     device = r.device
     n = r.shape[0]
     g = n // tile
-    kp = sel.shape[1]
-    rpt = WALK.call_int("walk_rays_per_thread")
-    if n % tile or tile % rpt or tile // rpt > 1024 or 40 * block * 4 > MAX_SMEM:
+    kp, block = cm.n_blocks, cm.block
+    if (tile <= 0 or block <= 0 or n % tile
+            or WALK.call_int("walk_smem_bytes", block) > MAX_SMEM):
         raise ValueError(f"walk: bad tile {tile} / block {block} for {n} rays")
     check_tensor(sel, "sel", torch.int32, (g, kp), device)
     check_tensor(lb, "lb", torch.float32, (g, kp), device)
@@ -171,13 +213,20 @@ def walk(sel, lb, nsel, r, t0, act, w, tile: int, block: int):
     check_tensor(r, "r", torch.float32, (n, 16), device)
     check_tensor(t0, "t0", torch.float32, (n,), device)
     check_tensor(act, "act", torch.float32, (n,), device)
-    check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
+    check_tensor(cm.w, "w", torch.float32, (kp, 16, 4 * block), device)
+    check_tensor(cm.real, "real", torch.int32, (kp,), device)
+    check_tensor(cm.slab, "slab", torch.float32, (8, kp), device)
+    if rounds is not None:
+        check_tensor(rounds, "rounds", torch.int32, (g, 2), device)
     bt = torch.empty((n,), dtype=torch.float32, device=device)
     btri = torch.empty((n,), dtype=torch.int32, device=device)
     if n:
-        WALK.launch(device, sel.data_ptr(), lb.data_ptr(), nsel.data_ptr(),
-                    r.data_ptr(), t0.data_ptr(), act.data_ptr(), w.data_ptr(),
-                    bt.data_ptr(), btri.data_ptr(), n, kp, tile, block)
+        # longest feasible list first: the short ones fill the last wave
+        order = torch.sort(nsel[:, 0], descending=True, stable=True).indices.to(torch.int32)
+        WALK.launch(device, sel.data_ptr(), lb.data_ptr(), nsel.data_ptr(), order.data_ptr(),
+                    r.data_ptr(), t0.data_ptr(), act.data_ptr(), cm.w.data_ptr(),
+                    cm.real.data_ptr(), cm.slab.data_ptr(), bt.data_ptr(), btri.data_ptr(),
+                    None if rounds is None else rounds.data_ptr(), n, kp, tile, block)
     return bt, btri
 
 
@@ -216,7 +265,7 @@ def intersect_mesh_walk(origin, direction, cm: "cl.ClusterMesh", config,
     sel, lb, nsel = _full_select(tile_entry)
 
     r = cl._ray_rows(x)
-    bt, btri = walk(sel, lb, nsel, r, t0s, acts, cm.w, tile, cm.block)
+    bt, btri = walk(sel, lb, nsel, r, t0s, acts, cm, tile)
 
     bt = _apply_perm(bt, rank)[:n]
     btri = _apply_perm(btri, rank)[:n]

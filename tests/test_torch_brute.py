@@ -143,3 +143,31 @@ def test_brute_routes_need_the_triangle_record(tmp_path, mxu_brute):
     hit = intersect_scene(_t(o), _t(d), scene.geoms, scene.mesh, cfg, cmesh=scene.cmesh,
                           mesh_packed=tmesh.pack_tris(scene.mesh))
     assert hit.t.shape == (64,) and torch.isfinite(hit.t).all()
+
+
+def test_live_first_permutation_round_trips():
+    """Kernel 8's wrapper sorts rays with d = 0 to the back (``live_first``)
+    and un-permutes the outputs: stable within each group, and the
+    inverse gives back every ray's own result."""
+    rng = np.random.default_rng(7)
+    mesh = _mesh(2)
+    o = np.array(_rays(1000, seed=8)[0])
+    d = np.float32([0.3, -0.2, 0.5]) + rng.normal(size=(1000, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)  # aimed near the sphere: most hit
+    d[rng.uniform(size=1000) < 0.3] = 0.0
+    d[5, :2] = 0.0  # one non-zero component: still a ray that moves
+    t_max = np.where(np.arange(1000) % 4 == 0, 3.0, 1e30).astype(np.float32)
+    perm, inv = tmxu.live_first(_t(d))
+    dead = np.all(d == 0, axis=1)
+    nlive = int((~dead).sum())
+    p = perm.numpy()
+    assert not dead[p[:nlive]].any() and dead[p[nlive:]].all()
+    assert (np.diff(p[:nlive]) > 0).all() and (np.diff(p[nlive:]) > 0).all()
+    assert torch.equal(perm[inv], torch.arange(1000))
+    v = [_t(a) for a in (mesh.v0, mesh.v1, mesh.v2)]
+    want = tmxu.intersect_brute_mxu_ref(_t(o), _t(d), *v, t_max=_t(t_max), block=128)
+    got = tmxu.intersect_brute_mxu_ref(_t(o)[perm], _t(d)[perm], *v, t_max=_t(t_max)[perm],
+                                       block=128)
+    assert (want.tri >= 0).sum() > 300 and (want.tri[_t(dead)] == -1).all()
+    assert torch.equal(got.tri[inv], want.tri)
+    torch.testing.assert_close(got.t[inv], want.t, rtol=T_RTOL, atol=0)

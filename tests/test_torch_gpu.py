@@ -5,19 +5,23 @@ the H100 run ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q``
 (``--noconftest``: the suite's conftest imports JAX, which that machine lacks).
 ``chip_smoke.py`` checks the kernels at the main path's shapes; these
 tests cover the other shapes the wrappers accept: tiles whose staging
-needs more than 48 KB of shared memory, 64- to 1024-triangle blocks,
-tiles with empty feasible lists or only dead rays, 1 to 16 pair slots,
-block tables of 1024 to 8192 blocks, pair tiles that are all sentinel or
-split a run, pair supertiles of more runs than kernel 7 stages a round, triangle counts that are not a multiple of the brute
-force's block, as many rounds as blocks, a single tile, gathers of n
-not a multiple of 4 or under one thread block, the sweep in both
-launch shapes, and bad arguments. Tolerances: slab cull, sphere cull, argmin bins, extraction
-and gather-to-columns bit for bit; walk, rounds, sweep and brute-force
-triangle ids exactly and t within 1e-5 relative (their 10-term sums may
-round differently from the batched product); the pair test's loc on >= 99.9% of real
-pairs and t within 2^-12 relative (the same rounding, seen through the
-2^-13 truncation of the packed key); the scatter-add of kernel 4 per
-entry within 1e-5 of the sum of the |contributions| to it (its float
+needs more than 48 KB of shared memory, 8- to 1024-triangle blocks,
+blocks whose weight runs are not 16-byte aligned, tiles with empty
+feasible lists or only dead rays, walk tiles of several thread blocks,
+tiles whose rays finish in the first round, 1 to 16 pair slots, block
+tables of 1024 to 8192 blocks, pair tiles that are all sentinel or split
+a run, pair supertiles of more runs than kernel 7 stages a round,
+triangle counts that are not a multiple of the brute force's block, rays
+with d = 0 among the brute force's, as many rounds as blocks, a single
+tile, gathers of n not a multiple of 4 or under one thread block, the
+sweep in both launch shapes, and bad arguments. Tolerances: slab cull,
+sphere cull, argmin bins, extraction and gather-to-columns bit for bit;
+walk, rounds, sweep and brute-force triangle ids exactly and t within
+1e-5 relative (their 10-term sums may round differently from the batched
+product); the pair test's loc on >= 99.9% of real pairs and t within
+2^-12 relative (the same rounding, seen through the 2^-13 truncation of
+the packed key); the scatter-add of kernel 4 per entry within 1e-5 of
+the sum of the |contributions| to it (its float
 atomics add in an order that changes from run to run).
 """
 
@@ -58,20 +62,36 @@ def _mesh(subdiv):
                    shape_bbox_min=v.min((0, 1))[None], shape_bbox_max=v.max((0, 1))[None])
 
 
-def _walk_inputs(cm, n, tile, seed, dead_frac=0.2):
+def _walk_inputs(cm, n, tile, seed, dead_frac=0.2, beams=False):
     """Sorted walk inputs for random rays, the way intersect_mesh_walk
-    builds them; the last tile is all dead."""
+    builds them; the last tile is all dead. With ``beams``, tile 0 is a
+    narrow beam along the normal of a triangle in the middle of block 0
+    (with blocks of 64 or more slots its rays hit in the first listed
+    block and need no later one) and tile 1 live rays leaving the mesh
+    from there (an empty list)."""
     rng = np.random.default_rng(seed)
     dev = cm.w.device
     # origins around the sphere, aimed near its centre: most rays hit
     o = rng.normal(size=(n, 3)).astype(np.float32) * 4.0
     d = (np.array([0.3, -0.2, 0.5], np.float32)
          + rng.normal(size=(n, 3)).astype(np.float32) * 1.5 - o)
-    o = torch.tensor(o, device=dev)
-    d = torch.tensor(d / np.linalg.norm(d, axis=1, keepdims=True), device=dev)
-    act = torch.tensor(rng.uniform(size=n) > dead_frac, device=dev)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    act = rng.uniform(size=n) > dead_frac
     act[-tile:] = False
-    t0 = torch.tensor(rng.uniform(2.0, 20.0, n).astype(np.float32), device=dev)
+    t0 = rng.uniform(2.0, 20.0, n).astype(np.float32)
+    if beams:
+        j = int(cm.real[0]) // 2
+        v = [getattr(cm.tris, f)[j].cpu().numpy() for f in ("v0", "v1", "v2")]
+        nrm = np.cross(v[1] - v[0], v[2] - v[0])
+        nrm /= np.linalg.norm(nrm)
+        o[:2 * tile] = ((v[0] + v[1] + v[2]) / 3 + 6.0 * nrm
+                        + rng.normal(size=(2 * tile, 3)).astype(np.float32) * 1e-3)
+        d[:tile] = -nrm
+        d[tile:2 * tile] = nrm
+        act[:2 * tile] = True
+        t0[:2 * tile] = 50.0
+    o, d = torch.tensor(o, device=dev), torch.tensor(d, device=dev)
+    act, t0 = torch.tensor(act, device=dev), torch.tensor(t0, device=dev)
     o = o - cm.center_shift
     d = torch.where(act[:, None], d, 0.0)
     x = twalk._ray16(o, d, t0, act.float())
@@ -91,20 +111,36 @@ def test_slab_cull_kernel_bit_equal(cuda, tile):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("block, tile", [(64, 256), (256, 1024), (512, 512), (1024, 128)])
+@pytest.mark.parametrize("block, tile", [(64, 256), (256, 1024), (512, 512), (1024, 128),
+                                         (256, 2048), (64, 1536), (9, 384), (8, 256)])
 def test_walk_kernel_matches_plain(cuda, block, tile):
+    """Padded tables (real < block), blocks of 9 (runs not 16-byte
+    aligned), tiles of more rays than a thread block takes and not a
+    multiple of them, a tile whose rays finish in the first round, an
+    all-dead tile and one of live rays with an empty list."""
     cm = build_cluster_mesh(_mesh(5), block=block, device=cuda)
+    assert (cm.real[:cm.n_real_blocks] < block).any()
     n = 8 * tile
-    x, sel, lb, nsel, r, t0, act = _walk_inputs(cm, n, tile, seed=block)
-    assert int(nsel.min()) == 0  # the dead tile has an empty list
+    x, sel, lb, nsel, r, t0, act = _walk_inputs(cm, n, tile, seed=block, beams=True)
+    assert int(nsel[-1]) == 0 and int(nsel[1]) == 0 and bool(act[tile:2 * tile].all())
     before = twalk.WALK.launches
-    bt_k, btri_k = twalk.walk(sel, lb, nsel, r, t0, act, cm.w, tile, block)
+    rounds = torch.zeros((n // tile, 2), dtype=torch.int32, device=cuda)
+    bt_k, btri_k = twalk.walk(sel, lb, nsel, r, t0, act, cm, tile, rounds=rounds)
     bt_p, btri_p = twalk._walk_ref(sel, lb, r, t0, act, cm.w, tile, block)
     assert twalk.WALK.launches == before + 1
     assert int((btri_p >= 0).sum()) > n // 4
     assert torch.equal(btri_k, btri_p)
     torch.testing.assert_close(bt_k, bt_p, rtol=1e-5, atol=0)
-    assert (btri_k[-tile:] == -1).all()
+    assert (btri_k[-tile:] == -1).all() and (btri_k[tile:2 * tile] == -1).all()
+    # the beam: rays that hit in the first listed block need no later one
+    # (leaves of 5 triangles, in blocks of 8 or 9, overlap their
+    # neighbours' boxes along it)
+    first = (btri_p[:tile] // block == sel[0, 0]) & (bt_p[:tile] <= lb[0, 1])
+    assert int(first.sum()) == tile or block < 64
+    assert not rounds[-1].any() and not rounds[1].any() and int(rounds[0, 0]) >= 1
+    assert (rounds[:, 1] <= rounds[:, 0] * block * (-(-tile // 32))).all()
+    again = twalk.walk(sel, lb, nsel, r, t0, act, cm, tile)
+    assert torch.equal(again[1], btri_k) and torch.equal(again[0], bt_k)
 
 
 @pytest.mark.parametrize("n, c", [
@@ -185,9 +221,21 @@ def test_wrappers_check_their_arguments(cuda):
     with pytest.raises(ValueError):
         twalk.slab_cull(x, cm.slab, cm.blk, 384)  # does not divide n
     with pytest.raises(ValueError):
-        twalk.walk(sel.long(), lb, nsel, r, t0, act, cm.w, 256, cm.block)
+        twalk.walk(sel.long(), lb, nsel, r, t0, act, cm, 256)
     with pytest.raises(ValueError):
-        twalk.walk(sel, lb, nsel, r.T.contiguous().T, t0, act, cm.w, 256, cm.block)
+        twalk.walk(sel, lb, nsel, r.T.contiguous().T, t0, act, cm, 256)
+    for real in (cm.real.long(), cm.real[:-1], cm.real.float()):
+        with pytest.raises(ValueError):
+            twalk.walk(sel, lb, nsel, r, t0, act, cm._replace(real=real), 256)
+    with pytest.raises(ValueError):
+        twalk.walk(sel, lb, nsel, r, t0, act, cm._replace(slab=cm.slab[:6]), 256)
+    for rounds in (torch.zeros((4, 2), dtype=torch.int64, device=cuda),
+                   torch.zeros(4, dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError):  # [tiles, 2] int32
+            twalk.walk(sel, lb, nsel, r, t0, act, cm, 256, rounds=rounds)
+    with pytest.raises(ValueError):  # blocks of 4096 slots need 512 KB of staging
+        twalk.walk(sel, lb, nsel, r, t0, act, cm._replace(
+            w=torch.zeros((cm.n_blocks, 16, 4 * 4096), device=cuda), block=4096), 256)
     with pytest.raises(ValueError):
         tmesh.gather_cols(torch.zeros((4, 19), device=cuda), torch.zeros(3, dtype=torch.int64, device=cuda))
     before = tmesh.GATHER_COLS.launches
@@ -196,12 +244,14 @@ def test_wrappers_check_their_arguments(cuda):
     assert out.shape == (19, 0) and tmesh.GATHER_COLS.launches == before
 
 
-def test_walk_intersector_on_cuda_matches_cpu(cuda):
-    """The whole intersector, kernels against plain versions."""
+@pytest.mark.parametrize("n", [4096, 3001])
+def test_walk_intersector_on_cuda_matches_cpu(cuda, n):
+    """The whole intersector, kernels against plain versions; 3,001 rays
+    are not a multiple of the tile."""
     mesh = _mesh(4)
     rng = np.random.default_rng(3)
-    o = rng.normal(size=(4096, 3)).astype(np.float32) * 4.0
-    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    o = rng.normal(size=(n, 3)).astype(np.float32) * 4.0
+    d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     cfg = RenderConfig(cluster_tile=256)
     hits = [twalk.intersect_mesh_walk(torch.tensor(o, device=dev), torch.tensor(d, device=dev),
@@ -393,16 +443,20 @@ def test_kd_walk_on_cuda_matches_cpu(cuda, octant_rows):
 
 
 @pytest.mark.parametrize("n_tris_subdiv, tri_block, ray_tile", [(3, 512, 1024), (4, 64, 256),
-                                                                 (4, 1024, 512)])
+                                                                 (4, 1024, 512), (3, 100, 128)])
 def test_brute_force_kernel_matches_plain(cuda, n_tris_subdiv, tri_block, ray_tile):
-    """1,280 or 5,120 triangles (not multiples of 512 or 1024), 3,000 rays
-    (not a multiple of the ray tile), some with a t bound."""
+    """1,280 or 5,120 triangles (not multiples of the block: the last block
+    is padded), 3,000 rays (not a multiple of the ray tile), some with a t
+    bound, and 40% with d = 0 mixed among them (sorted to the back, where
+    they fill whole tiles)."""
     mesh = build_cluster_mesh(_mesh(n_tris_subdiv), block=64, device=cuda).tris
     rng = np.random.default_rng(tri_block)
     o = torch.tensor(rng.normal(size=(3000, 3)).astype(np.float32) * 4.0, device=cuda)
     d = torch.tensor(np.array([0.3, -0.2, 0.5], np.float32)
                      + rng.normal(size=(3000, 3)).astype(np.float32), device=cuda) - o
     d = d / d.norm(dim=1, keepdim=True)
+    dead = torch.tensor(rng.uniform(size=3000) < 0.4, device=cuda)
+    d = torch.where(dead[:, None], 0.0, d)
     t_max = torch.where(torch.arange(3000, device=cuda) % 3 == 0, 4.0, 1e30)
     before = mxu_bf.BF.launches
     got = mxu_bf.intersect_brute_mxu(o, d, mesh.v0, mesh.v1, mesh.v2, t_max=t_max,
@@ -410,7 +464,7 @@ def test_brute_force_kernel_matches_plain(cuda, n_tris_subdiv, tri_block, ray_ti
     want = mxu_bf.intersect_brute_mxu_ref(o, d, mesh.v0, mesh.v1, mesh.v2, t_max=t_max,
                                           block=tri_block)
     assert mxu_bf.BF.launches == before + 1
-    assert int((want.tri >= 0).sum()) > 300
+    assert int((want.tri >= 0).sum()) > 300 and (got.tri[dead] == -1).all()
     assert torch.equal(got.tri, want.tri)
     torch.testing.assert_close(got.t, want.t, rtol=1e-5, atol=0)
 
@@ -433,10 +487,12 @@ def test_new_wrappers_check_their_arguments(cuda):
     with pytest.raises(ValueError):
         tpairs.pair_runs(blk_s.long(), feat, cm.w, 64, 256, cm.n_real_blocks)
     v = cm.tris.v0
-    with pytest.raises(ValueError):  # 82-ray tiles: not 4 rays per thread
-        mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, ray_tile=82)
-    with pytest.raises(ValueError):  # 2048-triangle blocks need 320 KB
+    with pytest.raises(ValueError):  # 81-ray tiles: not a whole number of threads
+        mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, ray_tile=81)
+    with pytest.raises(ValueError):  # 2048-triangle blocks need 256 KB, double-buffered
         mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, tri_block=2048)
+    with pytest.raises(ValueError):  # more rays a tile than a thread block takes
+        mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, ray_tile=8192)
 
 
 def test_pair_intersector_on_cuda_matches_cpu(cuda):

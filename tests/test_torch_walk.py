@@ -23,11 +23,15 @@ from kdtreepathtraceroptimization_tpu.ops.mesh import (
     tri_hit_to_hit as jtri_hit_to_hit,
 )
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig as TCfg
+from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf as tmxu
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mesh as tbuild
+from kdtreepathtraceroptimization_tpu_torch.render.integrator import render as trender
+from kdtreepathtraceroptimization_tpu_torch.scene.parser import load_scene, with_resolution
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA as TMesh
 from tests.test_cluster import _mesh, _rays
+from tests.test_torch_render import CORNELL, _mesh_obj
 
 # t agrees to 1e-6 relative (a 10-term float32 dot product summed in
 # another order), and hit/miss and triangle ids exactly.
@@ -154,8 +158,7 @@ def test_walk_matches_jax_kernel_and_ref(tile):
     bt_i, btri_i = jwalk._walk_pallas(sel, lb, nsel, r, t0, act, jcm.w, tile,
                                       jcm.block, True)
     bt_r, btri_r = jwalk._walk_ref(sel, lb, r, t0, act, jcm.w, tile, jcm.block)
-    bt_t, btri_t = twalk.walk(_t(sel), _t(lb), _t(nsel), _t(r), _t(t0), _t(act),
-                              tcm.w, tile, tcm.block)
+    bt_t, btri_t = twalk.walk(_t(sel), _t(lb), _t(nsel), _t(r), _t(t0), _t(act), tcm, tile)
     assert (np.asarray(btri_i) >= 0).sum() > 20
     for bt, btri in ((bt_i, btri_i), (bt_r, btri_r)):
         np.testing.assert_array_equal(np.asarray(btri), btri_t.numpy())
@@ -256,3 +259,50 @@ def test_empty_mesh_gives_misses():
                       u=torch.zeros(64), v=torch.zeros(64))
     h = tmesh.tri_hit_to_hit(_t(o), _t(d), th, empty)
     assert (h.t >= 1e30).all() and (h.material_id == -1).all()
+
+
+@pytest.mark.parametrize("tile", [128, 256])
+def test_walk_skip_premise_on_its_own_inputs(tmp_path, monkeypatch, tile):
+    """The walk kernel lets a ray take part in round rr of its tile only
+    while its best t exceeds lb[g, rr], the tile-min conservative entry
+    into block sel[g, rr], and it meets the block's box, widened by the
+    kernel's margin, before its best t (``_box_entry``). That is exact if
+    no triangle of the block gives any live ray of the tile an accepted t
+    below lb[g, rr], nor below the ray's own widened-box entry (nor any t
+    below its t0 where it misses the box). Checked with the plain epilogue
+    on every listed round of every call a depth-2 render of icosphere-3 in
+    the Cornell box (32x32, so 1,024 rays a bounce, the camera on the
+    mesh's split plane x = 0; 64-slot blocks, most of them padded) makes to
+    the walk."""
+    scene = with_resolution(load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5),
+                                       cluster_block=64, device="cpu"), 32, 32)
+    calls = []
+    real_walk = twalk.walk
+
+    def record(*args):
+        calls.append(args)
+        return real_walk(*args)
+
+    monkeypatch.setattr(twalk, "walk", record)
+    trender(scene, TCfg(trace_depth=2, cluster=True, cluster_walk=True,
+                        cluster_pairs=False, cluster_tile=tile), spp=2, seed=0, device="cpu")
+    assert len(calls) == 4
+    rounds = skipped = 0
+    for sel, lb, nsel, r, t0, act, cm, wtile in calls:
+        assert wtile == tile and (cm.real < cm.block).any()
+        entry = twalk._box_entry(r[:, 0:3], r[:, 3:6], cm.slab)
+        for g in range(r.shape[0] // tile):
+            rows = slice(g * tile, (g + 1) * tile)
+            live = act[rows] > 0
+            rt = r[rows][live]
+            for rr in range(int(nsel[g, 0]) if live.any() else 0):
+                k = int(sel[g, rr])
+                prod = rt @ cm.w[k]
+                t = tmxu._epilogue(prod, cm.block, lb[g, rr].expand(rt.shape[0]))
+                assert (t >= 1e30).all(), (g, rr)  # no accepted t below lb[g, rr]
+                own = torch.minimum(entry[rows, k], t0[rows])[live]
+                t = tmxu._epilogue(prod, cm.block, own)
+                assert (t >= 1e30).all(), (g, rr)  # nor below the ray's own entry
+                rounds += 1
+                skipped += int((entry[rows, k][live] >= t0[rows][live]).sum())
+    assert rounds > 100 and skipped > rounds  # most rays of a tile skip most of its blocks
