@@ -19,33 +19,36 @@ KD walk, brute force) and its gradient path on Cornell + an
    on >= 99.99% of rays with t within 1e-5 relative and, as its skips
    are exact, t and ids equal to the plain version's on every ray, on a
    padded table and with all-dead tiles, and its executed (tile, block)
-   rounds beside the needed ones); pass 1's and pass 2's extraction (bit for bit) and
-   pass 1's pair test (loc on >= 99.99% of real pairs, t within 2^-12
-   relative) from the pair path; the brute force on a 16,384-ray slice of
-   that bounce, rays with d = 0 among them (ids on >= 99.99%, t within
-   1e-5 relative), timed on the full bounce with the dead rays' d = 0 (as
-   the oracle calls pass them) and with their directions kept (as the
-   brute route does). Each with its time, its plain version's, one library
-   call's where one computes the same function, and its bound. The walk's
-   and the brute force's weight tables must have the zero pattern their
-   sparse test rests on (``mxu_bf.check_sparse_pattern``);
-2b. ``[shapes]``, only with ``--shapes`` (the measurement that chose the
-   launch-shape constants of kernels 2 and 8): the walk and the brute
-   force built with other launch shapes (rays a thread, threads, thread
-   blocks an SM holds) and timed on the same inputs, each equal to the
-   sources' own shape bit for bit;
+   rounds beside the needed ones, its time beside its earlier figure);
+   pass 1's and pass 2's extraction (bit for bit) and pass 1's pair test
+   (loc on >= 99.99% of real pairs, t within 2^-12 relative) from the
+   pair path;
+   the brute force on a 16,384-ray slice of that bounce, rays with d = 0
+   among them (ids on >= 99.99%, t within 1e-5 relative), timed on the
+   full bounce with the dead rays' d = 0 (as the oracle calls pass them)
+   and with their directions kept (as the brute route does). Each with
+   its time, its plain version's, one library call's where one computes
+   the same function, and its bound. The weight
+   tables of the walk, the brute force, kernel 7 and the rounds must have
+   the zero pattern their sparse test rests on
+   (``mxu_bf.check_sparse_pattern``);
 3. the pair list against the brute-force kernel on every ray of that
    bounce (640,000 rays x 131,072 triangle slots): ids on >= 99.99% of
    rays, t within 2^-12 relative (the pair list reports t truncated by
    its packed key, by < 2^-13); ``[bdiag]``: kernel 7 on the pairs the
    ``pair_bdiag`` path's second bounce hands it (1024-pair supertiles)
    against kernel 6 on the same pairs (packed keys bit for bit) and its
-   plain version (kernel 6's tolerance), and that path's pair list
+   plain version (kernel 6's tolerance), its runs per supertile and per
+   thread block and the rounds those take, and that path's pair list
    against the brute-force kernel on every ray;
 4. ``[cluster]``: kernels 9-12 against their plain versions on the inputs
    the cluster-rounds and binned paths hand them at their second bounce
-   (sphere cull and argmin bins bit for bit; rounds ids on >= 99.99% of
-   rays with t within 1e-5 relative; the sweep the same on the first
+   (sphere cull and argmin bins bit for bit; the rounds on the calls of
+   both paths ids on >= 99.99% of rays with t within 1e-5 relative and,
+   as its skips are exact, t and ids equal to the plain version's on
+   every ray, with its rounds and tests beside the needed ones and its
+   time also with its tiles launched in index order; the sweep ids on
+   >= 99.99% of rays with t within 1e-5 relative on the first
    16,384 of its flagged rows, in both launch shapes: one pass and the
    block axis split, which must also agree bit for bit on all its flagged
    rows; timed on them against the bound of that work, in each launch
@@ -53,6 +56,12 @@ KD walk, brute force) and its gradient path on Cornell + an
    intersectors against the brute-force kernel on every ray of that
    bounce (ids on >= 99.99%, t within 1e-5 relative), with the
    flagged-ray count and the repair;
+4b. ``[shapes]``, only with ``--shapes`` (the measurement that chose the
+   launch-shape constants of kernels 2, 8, 10 and 7): the walk, the brute
+   force, the rounds and kernel 7 built with other launch shapes (rays a
+   thread, threads, thread blocks an SM holds; for the walk and the
+   rounds, the triangle loop's unroll) and timed on the same inputs, each
+   equal to the sources' own shape bit for bit;
 5. golden parity: ``cornell_64``, ``cornell_spec_64`` (every pixel but
    the ten its jit render branched), ``mesh_pairs_48`` in its own (pair)
    config and in walk, cluster-rounds and binned config, ``mesh_kd_48``
@@ -247,21 +256,39 @@ SWEEP_EXTRA = ("rows", "slices", "one_pass_ms", "full_width_ms", "full_width_bou
 BRUTE_EXTRA = ("path_inputs_ms",)
 # Each main path's image and its iteration count (phase_main_path).
 IMAGES = {}
-# Launch shapes [shapes] times for kernels 2 and 8: (rays a thread, threads
-# a thread block, thread blocks an SM must hold under __launch_bounds__),
-# the constants of csrc/walk.cu and csrc/mxu_bf.cu; the first is the
-# sources' own. The brute force's ray tile is rays a thread x threads.
-SHAPES = {"walk": ((1, 128, 6), (4, 256, 2), (2, 256, 2), (2, 256, 3), (4, 128, 4),
-                   (8, 128, 2), (2, 512, 1), (1, 1024, 1), (2, 128, 4), (1, 256, 4),
-                   (1, 64, 6)),
+# Launch shapes [shapes] times for kernels 2, 8, 10 and 7: the values of
+# each source's SHAPE_CONSTANTS (rays a thread, threads a thread block,
+# thread blocks an SM must hold under __launch_bounds__; kernel 7 takes
+# one pair a thread, and sizes its weight slots for its blocks an SM); the
+# first is the source's own. The brute force's ray tile is rays a thread x
+# threads.
+SHAPES = {"walk": ((1, 128, 6, 0), (1, 128, 6, 4), (1, 128, 6, 8), (1, 256, 4, 4),
+                   (4, 256, 2, 0), (2, 256, 2, 0), (2, 256, 3, 0), (4, 128, 4, 0), (8, 128, 2, 0),
+                   (2, 512, 1, 0), (1, 1024, 1, 0), (2, 128, 4, 0), (1, 256, 4, 0), (1, 64, 6, 0)),
           "mxu_bf": ((2, 512, 1), (4, 256, 2), (2, 256, 2), (2, 256, 3), (8, 128, 2),
-                     (4, 128, 4), (1, 1024, 1), (2, 128, 4), (1, 512, 2))}
-SHAPE_CONSTANTS = ("kRpt", "kThreads", "kMinBlocks")
+                     (4, 128, 4), (1, 1024, 1), (2, 128, 4), (1, 512, 2)),
+          "cluster_rounds": ((1, 256, 4, 8), (1, 256, 4, 0), (1, 256, 4, 4), (1, 256, 3, 8),
+                             (1, 128, 6, 0), (1, 128, 6, 8), (2, 128, 4, 4), (1, 512, 2, 4),
+                             (1, 1024, 1, 0)),
+          "pair_bdiag": ((256, 3), (256, 2), (256, 4), (128, 4), (128, 2), (512, 1), (1024, 1))}
+# The constants SHAPES sets in each source, in order (kUnroll: the triangle
+# loop's unroll, 0 leaving it to the compiler).
+SHAPE_CONSTANTS = {"walk": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
+                   "mxu_bf": ("kRpt", "kThreads", "kMinBlocks"),
+                   "cluster_rounds": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
+                   "pair_bdiag": ("kThreads", "kMinBlocks")}
 # The brute force's triangle blocks [shapes] also times (the wrapper's
 # default is 512).
 BRUTE_TRI_BLOCKS = (256, 1024)
-# The recorded calls [shapes] times again (phase_kernels, phase_pairs).
+# The recorded calls [shapes] times again (phase_kernels, phase_pairs,
+# phase_cluster).
 SHAPE_INPUTS = {}
+# Pairs one thread block of kernel 7 takes (csrc/pair_bdiag.cu kThreads).
+BDIAG_PART = 256
+# Kernel 2 on the walk path's recorded call while csrc/walk.cu held its own
+# round loop, before csrc/round_walk.cuh (two runs of one call; H100 80GB
+# HBM3, 700.00 W; PERF.md section 6), ms.
+WALK_OWN_LOOP_MS = (3.767, 3.761)
 # The cluster table's triangle tables that the gradient phases differentiate.
 TRI_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2")
 # The subsurface transmittance [geomgrad] gives the icosphere's material
@@ -537,6 +564,9 @@ def phase_kernels(scene, config, device) -> dict:
         ids_equal=frac,
     )
     log(f"[kernels] walk: {results['walk']['shape']}")
+    log(f"[kernels] walk: kernel {results['walk']['ms']:.4f} ms; with its own round loop on "
+        f"this call: {', '.join(f'{v:.3f}' for v in WALK_OWN_LOOP_MS)} ms (H100 80GB HBM3, "
+        f"700.00 W)")
 
     # -- gather-to-columns: bit-equal ------------------------------------
     packed, tri = rg.args
@@ -632,8 +662,9 @@ def phase_pairs(scene, device):
     # round a sum differently: a t one ulp apart can move across a 2^-13
     # truncation step or an edge test, so loc may differ on a near-tie and
     # t by up to one truncation step.
-    blk_s, featp, w, block, ptile, kreal = rr.args
-    got = tpairs.pair_runs(blk_s, featp, w, block, ptile, kreal)
+    blk_s, featp, cm, ptile, kreal = rr.args
+    w, block = cm.w, cm.block
+    got = tpairs.pair_runs(blk_s, featp, cm, ptile, kreal)
     want = tpairs._pair_runs_ref(blk_s, featp, w, block, kreal)
     sync(device)
     real = blk_s < kreal
@@ -659,7 +690,7 @@ def phase_pairs(scene, device):
     pair_tests = int(args[2].real[blk_s[real].long()].sum())
     results["pair_runs"] = dict(
         max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
-        ms=time_ms(lambda: tpairs.pair_runs(blk_s, featp, w, block, ptile, kreal), 20),
+        ms=time_ms(lambda: tpairs.pair_runs(blk_s, featp, cm, ptile, kreal), 20),
         plain_ms=time_ms(lambda: tpairs._pair_runs_ref(blk_s, featp, w, block, kreal), 3),
         library_ms=None, **bound(nbytes, pair_tests * MT_OPS_PER_TEST),
         shape=f"{blk_s.shape[0]} pairs ({n_real} real, {blocks_used} blocks) in tiles of {ptile}, "
@@ -742,9 +773,9 @@ def ptxas_summary(text: str) -> str:
 
 
 def build_shapes() -> dict:
-    """Copies of csrc/walk.cu and csrc/mxu_bf.cu with the other SHAPES'
-    constants, one nvcc each, all at once -> {(name, shape): (build
-    directory, ptxas summary)}: each directory holds the library under the
+    """Copies of the SHAPES sources with their other shapes' constants, one
+    nvcc each, all at once -> {(name, shape): (build directory, ptxas
+    summary)}: each directory holds the library under the
     name ``cuda_build.library_path`` gives the source's own build, so that
     a CudaKernel loads it while ``cuda_build.BUILD_DIR`` names that
     directory. The sources' own shape must be SHAPES[name][0]."""
@@ -753,12 +784,12 @@ def build_shapes() -> dict:
     for name, shapes in SHAPES.items():
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
         own = tuple(int(re.search(rf"constexpr int {c} = (\d+);", text).group(1))
-                    for c in SHAPE_CONSTANTS)
+                    for c in SHAPE_CONSTANTS[name])
         if own != shapes[0]:
             raise AssertionError(f"{name}.cu's shape {own} is not SHAPES' first {shapes[0]}")
         for shape in shapes[1:]:
             src = text
-            for const, value in zip(SHAPE_CONSTANTS, shape):
+            for const, value in zip(SHAPE_CONSTANTS[name], shape):
                 src = re.sub(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};",
                              src)
             build_dir = os.path.join(out_dir, f"{name}_{'_'.join(map(str, shape))}")
@@ -791,20 +822,30 @@ def swapped(module, name: str, value):
 
 
 def phase_shapes(own_logs: dict) -> None:
-    """Kernels 2 and 8 in each of SHAPES, on the recorded calls of
-    phase_kernels (the walk path's bounce 1) and phase_pairs (the brute
-    force's full bounce): device ms and registers, and the outputs equal
-    to the sources' own shape's bit for bit (a ray's result does not
+    """Kernels 2, 8, 10 and 7 in each of SHAPES, on the recorded calls of
+    phase_kernels (the walk path's bounce 1), phase_pairs (the brute
+    force's full bounce), phase_cluster (the cluster path's bounce 1) and
+    phase_bdiag: device ms and registers, and the outputs equal to the
+    sources' own shape's bit for bit (a ray's or a pair's result does not
     depend on the shape). The brute force also at other triangle blocks."""
     t = time.perf_counter()
     built = build_shapes()
     log(f"[shapes] {len(built)} shape builds in {time.perf_counter() - t:.1f} s")
-    walk_args = SHAPE_INPUTS["walk"]
+    walk_args, rounds_args = SHAPE_INPUTS["walk"], SHAPE_INPUTS["cluster_rounds"]
+    bdiag_args = SHAPE_INPUTS["pair_bdiag"]
     origin, d_live, v0, v1, v2, t_init = SHAPE_INPUTS["mxu_bf"]
+
+    def brute(shape):
+        hit = tmxu.intersect_brute_mxu(origin, d_live, v0, v1, v2, t_max=t_init,
+                                       ray_tile=shape[0] * shape[1])
+        return hit.t, hit.tri
+
+    # each call returns its outputs as a tuple of tensors
     calls = {
         "walk": (twalk, "WALK", lambda shape: twalk.walk(*walk_args)),
-        "mxu_bf": (tmxu, "BF", lambda shape: tmxu.intersect_brute_mxu(
-            origin, d_live, v0, v1, v2, t_max=t_init, ray_tile=shape[0] * shape[1])),
+        "cluster_rounds": (tcl, "ROUNDS", lambda shape: tcl.cluster_rounds(*rounds_args)),
+        "mxu_bf": (tmxu, "BF", brute),
+        "pair_bdiag": (tpairs, "PAIR_BDIAG", lambda shape: (tpairs.pair_bdiag(*bdiag_args),)),
     }
     for name, shapes in SHAPES.items():
         module, attr, call = calls[name]
@@ -820,15 +861,16 @@ def phase_shapes(own_logs: dict) -> None:
                     kernel._function()  # loads the shape's build
             with swapped(module, attr, kernel):
                 got = call(shape)
-                ms = time_ms(lambda: call(shape), 5 if name == "walk" else 3)
-            got = (got[0], got[1]) if name == "walk" else (got.t, got.tri)
+                ms = time_ms(lambda: call(shape), 3 if name == "mxu_bf" else 5)
             sync(origin.device)
             if want is None:
                 want = got
-            elif not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            elif not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"[shapes] {name} {shape} differs from {shapes[0]}")
-            log(f"[shapes] {name} {shape[0]} rays x {shape[1]} threads, {shape[2]} blocks/SM: "
-                f"{ms:.3f} ms; registers (spill stores/loads) {regs or 'not built here'}")
+            consts = ", ".join(f"{c} {v}" for c, v in zip(SHAPE_CONSTANTS[name], shape))
+            log(f"[shapes] {name} {consts}: {ms:.3f} ms; registers (spill stores/loads) "
+                f"{regs or 'not built here'}")
+    own_tri = brute(SHAPES["mxu_bf"][0])[1]
     for block in BRUTE_TRI_BLOCKS:
         got = tmxu.intersect_brute_mxu(origin, d_live, v0, v1, v2, t_max=t_init,
                                        tri_block=block)
@@ -836,7 +878,7 @@ def phase_shapes(own_logs: dict) -> None:
                                                       tri_block=block), 3)
         sync(origin.device)
         log(f"[shapes] mxu_bf triangle blocks of {block}: {ms:.3f} ms; ids equal to blocks of "
-            f"512 on {(got.tri == want[1]).float().mean().item():.6%}")
+            f"512 on {(got.tri == own_tri).float().mean().item():.6%}")
 
 
 def brute_check(label, hit, args, kwargs, rtol: float = 1e-5) -> None:
@@ -882,29 +924,67 @@ def check_cull(args) -> dict:
     return res
 
 
-def check_rounds(args, cm) -> dict:
-    """Kernel 10 against its plain version on the path's own inputs."""
-    sel, lb, r, t0, act, w, tile, block = args
-    got = tcl.cluster_rounds(sel, lb, r, t0, act, w, tile, block)
-    want = tcl._cluster_ref(sel, lb, r, t0, act, w, tile, block, sel.shape[1])
+def rounds_in_tile_order(sel, lb, r, t0, act, cm, tile):
+    """Kernel 10 launched with its tiles in index order rather than the
+    wrapper's longest list first (a measurement of the launch order)."""
+    n, device = r.shape[0], r.device
+    nsel = (lb < BIG).sum(dim=1, dtype=torch.int32)
+    order = torch.arange(nsel.shape[0], dtype=torch.int32, device=device)
+    bt = torch.empty((n,), dtype=torch.float32, device=device)
+    btri = torch.empty((n,), dtype=torch.int32, device=device)
+    tcl.ROUNDS.launch(device, sel.data_ptr(), lb.data_ptr(), nsel.data_ptr(), order.data_ptr(),
+                      r.data_ptr(), t0.data_ptr(), act.data_ptr(), cm.w.data_ptr(),
+                      cm.real.data_ptr(), cm.slab.data_ptr(), bt.data_ptr(), btri.data_ptr(),
+                      None, n, sel.shape[1], cm.n_blocks, tile, cm.block)
+    return bt, btri
+
+
+def check_rounds(args, label) -> dict:
+    """Kernel 10 against its plain version on one path's recorded call:
+    ids on >= 99.99% of rays, t within 1e-5, and, as its skips are exact
+    and its sparse chain gives the dense chain's floats, t and ids equal on
+    every ray; the table's zero pattern; its rounds and tests beside the
+    needed ones, and its time (also with the tiles in index order)."""
+    sel, lb, r, t0, act, cm, tile = args
+    tmxu.check_sparse_pattern(cm.w)  # the sparse test's precondition
+    g = r.shape[0] // tile
+    counts = torch.zeros((g, 2), dtype=torch.int32, device=r.device)
+    got = tcl.cluster_rounds(sel, lb, r, t0, act, cm, tile, rounds=counts)
+    want = tcl._cluster_ref(sel, lb, r, t0, act, cm.w, tile, cm.block, sel.shape[1])
     sync(r.device)
-    frac, max_err = check_hits("cluster_rounds", got, want)
+    frac, max_err = check_hits(f"cluster_rounds ({label})", got, want)
+    differ = int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+    log(f"[kernels] cluster_rounds ({label}): {differ} of {r.shape[0]} rays differ from the "
+        f"plain version in t or id (the skips are exact: none may)")
+    if differ:
+        raise AssertionError(f"cluster_rounds ({label}): {differ} rays differ from the plain "
+                             f"version")
     needed, tile_tests, tests, used_tris = needed_rounds(cm, sel, lb, want[0], act, r, tile)
+    listed = int((lb < BIG).sum())
     # each ray's features, t0, act and outputs; the listed entries of sel
     # and lb; the real triangles the needed tests read, once
-    nbytes = (r.shape[0] * (RAY_FEATURE_BYTES + 4 * 4) + int((lb < BIG).sum()) * 2 * 4
-              + used_tris * TRI_BYTES)
+    nbytes = r.shape[0] * (RAY_FEATURE_BYTES + 4 * 4) + listed * 2 * 4 + used_tris * TRI_BYTES
     res = dict(max_abs_err=max_err,
-               ms=time_ms(lambda: tcl.cluster_rounds(sel, lb, r, t0, act, w, tile, block), 10),
-               plain_ms=time_ms(lambda: tcl._cluster_ref(sel, lb, r, t0, act, w, tile, block,
-                                                         sel.shape[1]), 1),
+               ms=time_ms(lambda: tcl.cluster_rounds(sel, lb, r, t0, act, cm, tile), 10),
+               plain_ms=time_ms(lambda: tcl._cluster_ref(sel, lb, r, t0, act, cm.w, tile,
+                                                         cm.block, sel.shape[1]), 1),
                library_ms=None, **bound(nbytes, tests * MT_OPS_PER_TEST),
-               shape=f"{sel.shape[0]} tiles of {tile} rays, {sel.shape[1]} rounds, {needed} "
-                     f"needed (tile, block) rounds of {block} slots, {tests} needed (live ray, "
-                     f"real triangle) tests at ray granularity ({tile_tests} counting every live "
-                     f"ray of a needed round), feasible lists of mean "
+               shape=f"{g} tiles of {tile} rays, {sel.shape[1]} rounds, {needed} needed "
+                     f"(tile, block) rounds of {cm.block} slots ({listed} listed; its thread "
+                     f"blocks ran {int(counts[:, 0].sum())} block rounds), {tests} needed (live "
+                     f"ray, real triangle) tests at ray granularity ({tile_tests} counting every "
+                     f"live ray of a needed round; the kernel ran {32 * int(counts[:, 1].sum())} "
+                     f"in 32-ray groups), lists of mean "
                      f"{(lb < BIG).sum(dim=1).float().mean().item():.1f}", ids_equal=frac)
-    log(f"[kernels] cluster_rounds: {res['shape']}")
+    in_order = rounds_in_tile_order(sel, lb, r, t0, act, cm, tile)
+    sync(r.device)
+    if not (torch.equal(in_order[0], got[0]) and torch.equal(in_order[1], got[1])):
+        raise AssertionError(f"cluster_rounds ({label}): the launch order changed a result")
+    order_ms = time_ms(lambda: rounds_in_tile_order(sel, lb, r, t0, act, cm, tile), 10)
+    log(f"[kernels] cluster_rounds ({label}): {res['shape']}")
+    log(f"[kernels] cluster_rounds ({label}): kernel {res['ms']:.4f} ms (longest list first), "
+        f"{order_ms:.4f} ms with the tiles in index order; bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}), plain {res['plain_ms']:.4f} ms")
     return res
 
 
@@ -1019,16 +1099,19 @@ def phase_cluster(scene, device) -> dict:
         brute_check("[cluster] cluster rounds (4)", hit, args, kwargs)
         sweep_args = rs4.args
     results["cluster_cull"] = check_cull(rc.args)
-    results["cluster_rounds"] = check_rounds(rr.args, cm)
+    results["cluster_rounds"] = check_rounds(rr.args, "cluster path")
+    SHAPE_INPUTS["cluster_rounds"] = rr.args
     results["cluster_sweep"] = check_sweep(sweep_args, "cluster path")
 
     args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **BINNED),
                                "intersect_mesh_binned", device)
-    with Recorder(tbinned, "argmin_bins", 0) as ra, Recorder(tcl, "sweep", 0) as rbs:
+    with Recorder(tbinned, "argmin_bins", 0) as ra, Recorder(tcl, "sweep", 0) as rbs, \
+            Recorder(tcl, "cluster_rounds", 0) as rbr:
         hit, stats = tbinned.intersect_mesh_binned(*args, **kwargs, collect_stats=True)
     log(f"[cluster] binned (32 rounds), bounce 1: {stats}")
     brute_check("[cluster] binned (32)", hit, args, kwargs)
     results["binned_argmin"] = check_argmin(ra.args)
+    check_rounds(rbr.args, "binned path")
     if rbs.args is not None:
         results["cluster_sweep_binned"] = check_sweep(rbs.args, "binned path")
     for name in ("cluster_cull", "cluster_rounds", "cluster_sweep", "binned_argmin"):
@@ -1054,9 +1137,12 @@ def phase_bdiag(scene, device) -> dict:
     sync(device)
     log(f"[bdiag] bounce 1 stats: {stats}")
     brute_check("[bdiag] pair list (pair_bdiag)", hit, args, kwargs, 2.0 ** -12)
-    blk_s, featp, w, block, ptile, kreal = rb.args
-    got = tpairs.pair_bdiag(blk_s, featp, w, block, ptile, kreal)
-    k6 = tpairs.pair_runs(blk_s, featp, w, block, 256, kreal)
+    blk_s, featp, cm, ptile, kreal = rb.args
+    SHAPE_INPUTS["pair_bdiag"] = rb.args
+    w, block = cm.w, cm.block
+    tmxu.check_sparse_pattern(w)  # the sparse test's precondition
+    got = tpairs.pair_bdiag(blk_s, featp, cm, ptile, kreal)
+    k6 = tpairs.pair_runs(blk_s, featp, cm, 256, kreal)
     want = tpairs._pair_runs_ref(blk_s, featp, w, block, kreal)
     sync(device)
     real = blk_s < kreal
@@ -1070,20 +1156,30 @@ def phase_bdiag(scene, device) -> dict:
     both = real & (tg < 1e30) & (tw < 1e30)
     rel = ((tg - tw).abs() / tw.abs().clamp_min(1e-30))[both]
     rel_max = rel.max().item() if rel.numel() else 0.0
-    # runs per supertile and the rounds kernel 7 takes for them
+    # runs per supertile, and per part of BDIAG_PART pairs (one thread
+    # block) the rounds kernel 7 takes for them
     slots = tpairs.PAIR_BDIAG.call_int("pair_bdiag_slots", block, cuda_build.MAX_SMEM)
     tiles = blk_s.reshape(-1, ptile)
     starts = torch.ones_like(tiles, dtype=torch.bool)
     starts[:, 1:] = tiles[:, 1:] != tiles[:, :-1]
     runs = (starts & (tiles < kreal)).sum(dim=1)
     busy = runs > 0
+    parts = blk_s.reshape(-1, min(ptile, BDIAG_PART))
+    pstarts = torch.ones_like(parts, dtype=torch.bool)
+    pstarts[:, 1:] = parts[:, 1:] != parts[:, :-1]
+    pruns = (pstarts & (parts < kreal)).sum(dim=1)
+    prounds = -(-pruns // slots)
     log(f"[bdiag] pair_bdiag == pair_runs bit for bit on all {blk_s.shape[0]} pairs ({n_real} "
         f"real); against the plain version: packed equal on "
         f"{(got == want)[real].float().mean().item():.6%} of real pairs, loc on {loc_eq:.6%}, "
         f"max |dt|/t {rel_max:.3g}")
-    log(f"[bdiag] {int(busy.sum())} of {tiles.shape[0]} supertiles hold real pairs: runs per "
-        f"such tile mean {runs[busy].float().mean().item():.2f}, max {int(runs.max())}; "
-        f"{slots} weight slots a round, rounds per tile max {-(-int(runs.max()) // slots)}")
+    log(f"[bdiag] {int(busy.sum())} of {tiles.shape[0]} supertiles of {ptile} pairs hold real "
+        f"pairs: runs per such tile mean {runs[busy].float().mean().item():.2f}, max "
+        f"{int(runs.max())}; in parts of {min(ptile, BDIAG_PART)} pairs (a thread block each), "
+        f"{int((pruns > 0).sum())} of {parts.shape[0]} hold real pairs, runs per such part mean "
+        f"{pruns[pruns > 0].float().mean().item():.2f}, max {int(pruns.max())}; {slots} weight "
+        f"slots a round, rounds per busy part mean {prounds[pruns > 0].float().mean().item():.3f}, "
+        f"max {int(prounds.max())}, {int((prounds > 1).sum())} parts of several rounds")
     if (got[~real] != tpairs._PBIG).any():
         raise AssertionError("pair_bdiag: a sentinel pair was not left at _PBIG")
     if loc_eq < 0.9999 or rel_max > 2.0 ** -12:
@@ -1091,16 +1187,16 @@ def phase_bdiag(scene, device) -> dict:
     used = torch.unique(blk_s[real].long())
     blocks_used = int(used.numel())
     nbytes = ((blk_s.numel() + featp.numel() + got.numel()) * 4
-              + int(args[2].real[used].sum()) * TRI_BYTES)
-    pair_tests = int(args[2].real[blk_s[real].long()].sum())
+              + int(cm.real[used].sum()) * TRI_BYTES)
+    pair_tests = int(cm.real[blk_s[real].long()].sum())
     res = dict(
         max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
-        ms=time_ms(lambda: tpairs.pair_bdiag(blk_s, featp, w, block, ptile, kreal), 20),
+        ms=time_ms(lambda: tpairs.pair_bdiag(blk_s, featp, cm, ptile, kreal), 20),
         plain_ms=time_ms(lambda: tpairs._pair_runs_ref(blk_s, featp, w, block, kreal), 3),
         library_ms=None, **bound(nbytes, pair_tests * MT_OPS_PER_TEST),
         shape=f"{blk_s.shape[0]} pairs ({n_real} real, {blocks_used} blocks) in supertiles of "
               f"{ptile}, blocks of {block} slots, {pair_tests} (real pair, real triangle) tests")
-    k6_ms = time_ms(lambda: tpairs.pair_runs(blk_s, featp, w, block, 256, kreal), 20)
+    k6_ms = time_ms(lambda: tpairs.pair_runs(blk_s, featp, cm, 256, kreal), 20)
     log(f"[kernels] pair_bdiag: {res['shape']}; kernel {res['ms']:.4f} ms (pair_runs on the same "
         f"pairs in tiles of 256: {k6_ms:.4f} ms), plain {res['plain_ms']:.4f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
@@ -1564,7 +1660,8 @@ def phase_gradcheck(device) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     parser.add_argument("--shapes", action="store_true",
-                        help="also time kernels 2 and 8 in the other launch shapes of SHAPES")
+                        help="also time kernels 2, 8, 10 and 7 in the other launch shapes "
+                             "of SHAPES")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1602,14 +1699,14 @@ def main() -> int:
     pair_results, _ = phase_pairs(scene, device)
     results.update(pair_results)
     phase_done("pairs")
-    if args.shapes:
-        phase_shapes(logs)
-        phase_done("shapes")
-    SHAPE_INPUTS.clear()  # the main paths' peak memory must not count these
     results["pair_bdiag"] = phase_bdiag(scene, device)
     phase_done("bdiag")
     results.update(phase_cluster(scene, device))
     phase_done("cluster")
+    if args.shapes:
+        phase_shapes(logs)
+        phase_done("shapes")
+    SHAPE_INPUTS.clear()  # the main paths' peak memory must not count these
     phase_goldens(device)
     phase_done("goldens")
     phase_kd(scene, device)

@@ -1,11 +1,12 @@
 // One block of triangles' Moller-Trumbore weights in shared memory, and
 // the test of one ray against one staged triangle.
 //
-// The dense form (stage_block, load_tri, accept) is shared by
-// pair_runs.cu, pair_bdiag.cu, cluster_rounds.cu and cluster_sweep.cu; the
-// sparse form (sparse_run, load_sparse, sparse_accept) by walk.cu and
-// mxu_bf.cu; the cp.async helpers by walk.cu, mxu_bf.cu and
-// cluster_sweep.cu.
+// The dense form (stage_block, load_tri, accept) is used by pair_runs.cu
+// (kernel 6) and, load_tri and accept only, cluster_sweep.cu (kernel 11);
+// the sparse form (sparse_run, load_sparse, sparse_accept) by mxu_bf.cu and
+// round_walk.cuh, whose round loop walk.cu and cluster_rounds.cu run and
+// whose staging pair_bdiag.cu shares; the cp.async helpers by all of these
+// but pair_runs.cu.
 //
 // A weight block is the cluster table's [16, 4B] layout (ops/cluster.py,
 // ops/mxu_bf.py): for triangle j, column j holds a's weights, column B + j

@@ -123,7 +123,7 @@ def _binned_pass(x, cm: "cl.ClusterMesh", tile: int, rounds: int):
 
     tile_entry = cl.cull(x, cm.cull_w, cm.blk, tile)
     sel, lb, lb_over = cl._select(tile_entry, rounds)
-    bt, btri = cl.cluster_rounds(sel, lb, cl._ray_rows(x), t0s, acts, cm.w, tile, cm.block)
+    bt, btri = cl.cluster_rounds(sel, lb, cl._ray_rows(x), t0s, acts, cm, tile)
     flagged = (acts > 0) & (lb_over.repeat_interleave(tile) < bt)
     return _apply_perm(bt, rank), _apply_perm(btri, rank), _apply_perm(flagged, rank)
 

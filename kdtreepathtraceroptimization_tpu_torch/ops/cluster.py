@@ -54,17 +54,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 CULL = CudaKernel("cluster_cull", "cluster_cull", [_P, _P, _P, _P, _I, _I, _I])
-ROUNDS = CudaKernel("cluster_rounds", "cluster_rounds",
-                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
+ROUNDS = CudaKernel("cluster_rounds", "cluster_rounds", [_P] * 13 + [_I] * 5)
 SWEEP = CudaKernel("cluster_sweep", "cluster_sweep",
                    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I])
 
 # Shared memory the sphere cull stages per ray of its tile (bytes): o, d,
 # t0, act, o.d and |o|^2.
 _CULL_BYTES_PER_RAY = 40
-# Shared memory one staged weight block of B triangles takes in the rounds
-# kernel (bytes per triangle: csrc/mt_block.cuh).
-_STAGED_BYTES_PER_TRI = 160
 # Elements of [rays, blocks] entries the plain cull makes at once.
 _REF_ENTRY_ELEMS = 1 << 26
 
@@ -433,38 +429,54 @@ def _select(tile_entry, rounds: int):
 # ---------------------------------------------------------------------------
 
 
-def cluster_rounds(sel, lb, r, t0, act, w, tile: int, block: int):
-    """Per-tile budgeted rounds (kernel 10) -> (bt [n], btri [n]): each
-    ray's nearest t below its t0 over the blocks ``sel`` lists for its
-    tile, and that triangle's id (-1 = none). Round rr of tile g runs only
-    while some live ray's best t exceeds lb[g, rr]."""
+def cluster_rounds(sel, lb, r, t0, act, cm: ClusterMesh, tile: int, rounds=None):
+    """Per-tile budgeted rounds (kernel 10) over the cluster table ``cm``
+    -> (bt [n], btri [n]): each ray's nearest t below its t0 over the
+    blocks ``sel`` lists for its tile, and that triangle's id (-1 = none).
+    Round rr of tile g runs only while some live ray's best t exceeds
+    lb[g, rr].
+
+    ``sel`` and ``lb`` [n / tile, R] are ``_select``'s: each tile's list in
+    entry order, ``lb`` ascending and BIG past its feasible blocks. The
+    kernel runs the walk's round loop (``csrc/round_walk.cuh``): it tests
+    only each block's real slots (``cm.real``), a ray only against the
+    blocks whose box (``cm.slab``) it enters before its best t, and stops a
+    tile at the first round none of its live rays wants. Unless None,
+    ``rounds`` [n / tile, 2] int32 gains, per tile, the rounds its thread
+    blocks ran and the (32-ray group, real slot) tests they ran (kernel
+    only: a measurement, which the render passes as None)."""
     if r.device.type == "cpu":
-        return _cluster_ref(sel, lb, r, t0, act, w, tile, block, sel.shape[1])
+        return _cluster_ref(sel, lb, r, t0, act, cm.w, tile, cm.block, sel.shape[1])
     if r.device.type != "cuda":
         raise ValueError(f"cluster_rounds runs on CUDA or CPU tensors, not {r.device}")
     device = r.device
     n = r.shape[0]
-    kp = w.shape[0]
-    rpt = ROUNDS.call_int("cluster_rays_per_thread")
-    if (tile <= 0 or n % tile or tile % rpt or tile // rpt > 1024
-            or block * _STAGED_BYTES_PER_TRI > MAX_SMEM):
+    kp, block = cm.n_blocks, cm.block
+    if (tile <= 0 or block <= 0 or n % tile
+            or ROUNDS.call_int("cluster_rounds_smem_bytes", block) > MAX_SMEM):
         raise ValueError(f"cluster_rounds: bad tile {tile} / block {block} for {n} rays")
+    g, nr = n // tile, sel.shape[1]
+    check_tensor(sel, "sel", torch.int32, (g, nr), device)
+    check_tensor(lb, "lb", torch.float32, (g, nr), device)
     check_tensor(r, "r", torch.float32, (n, 16), device)
     check_tensor(t0, "t0", torch.float32, (n,), device)
-    check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
-    rounds = sel.shape[1]
-    check_tensor(sel, "sel", torch.int32, (n // tile, rounds), device)
-    check_tensor(lb, "lb", torch.float32, (n // tile, rounds), device)
     check_tensor(act, "act", torch.float32, (n,), device)
+    check_tensor(cm.w, "w", torch.float32, (kp, 16, 4 * block), device)
+    check_tensor(cm.real, "real", torch.int32, (kp,), device)
+    check_tensor(cm.slab, "slab", torch.float32, (8, kp), device)
+    if rounds is not None:
+        check_tensor(rounds, "rounds", torch.int32, (g, 2), device)
     bt = torch.empty((n,), dtype=torch.float32, device=device)
     btri = torch.empty((n,), dtype=torch.int32, device=device)
-    if n and rounds:
-        ROUNDS.launch(device, sel.data_ptr(), lb.data_ptr(), r.data_ptr(), t0.data_ptr(),
-                      act.data_ptr(), w.data_ptr(), bt.data_ptr(), btri.data_ptr(),
-                      n, rounds, tile, block)
-    elif n:
-        bt.copy_(t0)
-        btri.fill_(-1)
+    if n:
+        # each tile's list length (lb is BIG past it), and the tiles in
+        # the walk's launch order: longest list first
+        nsel = (lb < BIG).sum(dim=1, dtype=torch.int32)
+        order = torch.sort(nsel, descending=True, stable=True).indices.to(torch.int32)
+        ROUNDS.launch(device, sel.data_ptr(), lb.data_ptr(), nsel.data_ptr(), order.data_ptr(),
+                      r.data_ptr(), t0.data_ptr(), act.data_ptr(), cm.w.data_ptr(),
+                      cm.real.data_ptr(), cm.slab.data_ptr(), bt.data_ptr(), btri.data_ptr(),
+                      None if rounds is None else rounds.data_ptr(), n, nr, kp, tile, block)
     return bt, btri
 
 
@@ -596,7 +608,7 @@ def intersect_mesh_cluster(origin, direction, cm: ClusterMesh, config,
     tile_entry = cull(x, cm.cull_w, cm.blk, tile)
     sel, lb, lb_over = _select(tile_entry, config.cluster_rounds)
     r = _ray_rows(x)
-    bt, btri = cluster_rounds(sel, lb, r, t0, actf, cm.w, tile, cm.block)
+    bt, btri = cluster_rounds(sel, lb, r, t0, actf, cm, tile)
 
     # Exactness repair: a ray that its tile's first unselected block could
     # still beat reruns against every real triangle, bounded by its best t.

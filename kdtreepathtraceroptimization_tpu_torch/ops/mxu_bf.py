@@ -6,14 +6,15 @@ From the JAX package's ``ops/mxu_bf.py``: with the ray feature row
 gives every quantity the triangle test needs, and the test itself is a
 handful of comparisons (``_epilogue``). The cluster table stores ``W``
 per block (``ops/cluster.py``); the walk, pair and brute-force kernels
-evaluate the same product and epilogue per ray (``csrc/walk.cu``,
+evaluate the same product and epilogue per ray (``csrc/round_walk.cuh``,
 ``csrc/mt_block.cuh``).
 
 Only 19 of a triangle's 40 weights can be non-zero, and a's three are
 the negation of three of t_num's (``SPARSE_ORDER``,
-``check_sparse_pattern``): the walk and brute-force kernels stage a
-triangle's 16 distinct weights (``sparse_weights``) and run only the
-non-zero multiply-adds, with the same results (``csrc/mt_block.cuh``).
+``check_sparse_pattern``): the walk, cluster-rounds, kernel-7 pair and
+brute-force kernels stage a triangle's 16 distinct weights (the brute
+force's from ``sparse_weights``) and run only the non-zero multiply-adds,
+with the same results (``csrc/mt_block.cuh``).
 
 The brute force tests every ray against every triangle: the plain
 version ``intersect_brute_mxu_ref`` one triangle block at a time with a

@@ -50,7 +50,7 @@ _I = ctypes.c_int
 EXTRACT = CudaKernel("pair_extract", "pair_extract",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I])
 PAIR_RUNS = CudaKernel("pair_runs", "pair_runs", [_P, _P, _P, _P, _I, _I, _I, _I])
-PAIR_BDIAG = CudaKernel("pair_bdiag", "pair_bdiag", [_P, _P, _P, _P, _I, _I, _I, _I, _I])
+PAIR_BDIAG = CudaKernel("pair_bdiag", "pair_bdiag", [_P] * 5 + [_I] * 5)
 
 # Second-pass window depth and the pass-2 / pass-3 buffer sizes (the JAX
 # package's tuning on the cornell + dragon diffuse wave).
@@ -207,13 +207,16 @@ def _pair_runs_ref(blk_s, feat, w, block: int, kreal: int):
     return out
 
 
-def pair_runs(blk_s, feat, w, block: int, ptile: int, kreal: int):
+def pair_runs(blk_s, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int):
     """Packed nearest (t | loc) per pair (kernel 6).
 
     blk_s [P] i32: each pair's block id, ascending, so sentinel ids
     (>= kreal) come last; feat [P, 16]: each pair's _feat16t record (its
-    bound t0 in column 10); w [kp, 16, 4B]: the cluster weight blocks.
-    P must be a multiple of ``ptile``, the pairs one thread block takes."""
+    bound t0 in column 10); ``cm``: the cluster table, whose weight blocks
+    ``cm.w`` [kp, 16, 4B] the kernel reads. P must be a multiple of
+    ``ptile``, the pairs one thread block takes. The signature is
+    ``pair_bdiag``'s."""
+    w, block = cm.w, cm.block
     if feat.device.type == "cpu":
         return _pair_runs_ref(blk_s, feat, w, block, kreal)
     if feat.device.type != "cuda":
@@ -234,12 +237,16 @@ def pair_runs(blk_s, feat, w, block: int, ptile: int, kreal: int):
     return out
 
 
-def pair_bdiag(blk_s, feat, w, block: int, ptile: int, kreal: int):
+def pair_bdiag(blk_s, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int):
     """Packed nearest (t | loc) per pair on supertiles (kernel 7): the
-    function of ``pair_runs`` (its plain version is ``_pair_runs_ref``), a
-    thread block per ``ptile`` pairs (at most 1024, a multiple of 32)
-    testing several same-block runs at once. P must be a multiple of
-    ``ptile``."""
+    function of ``pair_runs`` (its plain version is ``_pair_runs_ref``),
+    with its signature. ``ptile`` pairs (at most 1024, a multiple of 32)
+    make a supertile, taken by thread blocks of 256 pairs that each test
+    several same-block runs at once. The kernel stages only each block's
+    real slots (``cm.real``) and runs the sparse test on them, which rests
+    on the table's zero pattern (``mxu_bf.check_sparse_pattern``). P must
+    be a multiple of ``ptile``."""
+    w, block = cm.w, cm.block
     if feat.device.type == "cpu":
         return _pair_runs_ref(blk_s, feat, w, block, kreal)
     if feat.device.type != "cuda":
@@ -255,10 +262,12 @@ def pair_bdiag(blk_s, feat, w, block: int, ptile: int, kreal: int):
     check_tensor(blk_s, "blk_s", torch.int32, (p,), device)
     check_tensor(feat, "feat", torch.float32, (p, 16), device)
     check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
+    check_tensor(cm.real, "real", torch.int32, (kp,), device)
     out = torch.empty((p,), dtype=torch.int32, device=device)
     if p:
         PAIR_BDIAG.launch(device, blk_s.data_ptr(), feat.data_ptr(), w.data_ptr(),
-                          out.data_ptr(), p, ptile, block, min(kreal, kp), slots)
+                          cm.real.data_ptr(), out.data_ptr(), p, ptile, block, min(kreal, kp),
+                          slots)
     return out
 
 
@@ -281,7 +290,7 @@ def _pair_pass(ids, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int,
     blk_s, src = torch.sort(flat, stable=True)
     featp = feat[torch.clamp_max(src // F, n - 1)]
     runner = pair_bdiag if bdiag else pair_runs
-    packed = runner(blk_s, featp, cm.w, cm.block, ptile, kreal)
+    packed = runner(blk_s, featp, cm, ptile, kreal)
     slots = torch.empty_like(packed)
     slots[src] = packed
     t_p, loc_p = _unpack_tl(slots[:p].reshape(n, F))

@@ -145,10 +145,10 @@ def _full_select(tile_entry):
     return sel, lb, (lb < BIG).sum(dim=1, dtype=torch.int32)[:, None]
 
 
-# The walk kernel's box test widens each block's box by BOX_MARGIN_REL of
-# its largest extent plus BOX_MARGIN_ABS (csrc/walk.cu box_margin): far
-# above the rounding of the test, so that every accepted hit in the block
-# lies inside the widened box.
+# The box test of the walk and the rounds widens each block's box by
+# BOX_MARGIN_REL of its largest extent plus BOX_MARGIN_ABS
+# (csrc/round_walk.cuh box_margin): far above the rounding of the test, so
+# that every accepted hit in the block lies inside the widened box.
 BOX_MARGIN_REL = 1e-3
 BOX_MARGIN_ABS = 1e-4
 
@@ -156,10 +156,11 @@ BOX_MARGIN_ABS = 1e-4
 def _box_entry(o, d, slab):
     """[n] rays x [K] boxes -> [n, K]: the least t >= 0 at which each ray
     meets each block's box widened by the margin, inf where it never does.
-    The plain form of the walk kernel's per-ray skip (csrc/walk.cu
-    meets_box(..., t) is ``_box_entry(...) <= t``), in the same float32
-    operations: an axis with d = 0 is a containment test, the others slabs
-    through 1 / d; fmax and fmin pass over a NaN as fmaxf and fminf do."""
+    The plain form of the per-ray skip of the walk and the rounds
+    (csrc/round_walk.cuh meets_box(..., t) is ``_box_entry(...) <= t``),
+    in the same float32 operations: an axis with d = 0 is a containment
+    test, the others slabs through 1 / d; fmax and fmin pass over a NaN as
+    fmaxf and fminf do."""
     lo, hi = slab[0:3], slab[3:6]
     m = BOX_MARGIN_REL * (hi - lo).amax(dim=0) + BOX_MARGIN_ABS
     n = o.shape[0]

@@ -37,6 +37,8 @@ from kdtreepathtraceroptimization_tpu.scene import parser as jparser
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig as TCfg
 from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
 from kdtreepathtraceroptimization_tpu_torch.ops import cluster as tcl
+from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf as tmxu
+from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import mesh_route, render
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
 from tests.test_cluster import _mesh, _rays
@@ -158,8 +160,7 @@ def test_cluster_rounds_matches_jax_ref(tile, rounds):
     _, jcm, tcm = _tables(2)
     sel, lb, r, t0, act = _round_inputs(jcm, tile, rounds)
     want = _jax_cluster_ref(sel, lb, r, t0, act, jcm.w, tile, jcm.block, sel.shape[1])
-    bt, btri = tcl.cluster_rounds(_t(sel), _t(lb), _t(r), _t(t0), _t(act), tcm.w, tile,
-                                  tcm.block)
+    bt, btri = tcl.cluster_rounds(_t(sel), _t(lb), _t(r), _t(t0), _t(act), tcm, tile)
     assert (np.asarray(want[1]) >= 0).sum() > 200
     _assert_hits(want, bt, btri)
 
@@ -168,9 +169,69 @@ def test_cluster_rounds_matches_pallas_interpret():
     _, jcm, tcm = _tables(2)
     sel, lb, r, t0, act = _round_inputs(jcm, 256, 4)
     want = jcl._cluster_pallas(sel, lb, r, t0, act, jcm.w, 256, jcm.block, 4, True)
-    bt, btri = tcl.cluster_rounds(_t(sel), _t(lb), _t(r), _t(t0), _t(act), tcm.w, 256,
-                                  tcm.block)
+    bt, btri = tcl.cluster_rounds(_t(sel), _t(lb), _t(r), _t(t0), _t(act), tcm, 256)
     _assert_hits(want, bt, btri)
+
+
+@pytest.mark.parametrize("route", ["cluster", "binned"])
+def test_rounds_skip_premise_on_their_own_inputs(tmp_path, monkeypatch, route):
+    """Kernel 10 runs the walk's round loop (csrc/round_walk.cuh): a ray
+    takes part in round rr of its tile only while its best t exceeds
+    lb[g, rr], the tile-min sphere entry into block sel[g, rr], and it
+    meets the block's box, widened by the kernel's margin, before its best
+    t (``walk._box_entry``); a part of a tile stops at the first round
+    none of its live rays wants. That is exact if no triangle of the block
+    gives any live ray of the tile an accepted t below lb[g, rr], nor below
+    the ray's own widened-box entry, and if lb ascends along each tile's
+    list (a best t only falls, so a round no ray wants is followed by
+    none). Checked with the plain epilogue on every listed round of every
+    call a depth-2 render of icosphere-3 in the Cornell box (32x32, 2 spp;
+    64-slot blocks, most of them padded) makes to the rounds, on the
+    cluster route and on the binned route (whose compacted repair passes
+    R = K), each with 4 rounds: fewer than some tiles' feasible blocks."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5), cluster_block=64,
+                           device="cpu"), 32, 32)
+    calls, over = [], []
+    real_rounds, real_select = tcl.cluster_rounds, tcl._select
+
+    def record(*args):
+        calls.append(args)
+        return real_rounds(*args)
+
+    def select(tile_entry, rounds):
+        out = real_select(tile_entry, rounds)
+        over.append(out[2])
+        return out
+
+    monkeypatch.setattr(tcl, "cluster_rounds", record)
+    monkeypatch.setattr(tcl, "_select", select)
+    cfg = TCfg(trace_depth=2, cluster_tile=256, cluster_rounds=4, binned_rounds=4,
+               cluster_binned=route == "binned", **CLUSTER)
+    assert mesh_route(scene.mesh, scene.cmesh, cfg) == route
+    render(scene, cfg, spp=2, seed=0, device="cpu")
+    assert len(calls) >= 4 and any(bool((o < 1e30).any()) for o in over)  # R < feasible
+    assert any(sel.shape[1] == 4 for sel, *_ in calls)
+    rounds = skipped = 0
+    for sel, lb, r, t0, act, cm, tile in calls:
+        assert tile == 256 and (cm.real < cm.block).any()
+        assert (lb[:, 1:] >= lb[:, :-1]).all()  # entry order: the early exit is exact
+        entry = twalk._box_entry(r[:, 0:3], r[:, 3:6], cm.slab)
+        for g in range(r.shape[0] // tile):
+            rows = slice(g * tile, (g + 1) * tile)
+            live = act[rows] > 0
+            rt = r[rows][live]
+            for rr in range(int((lb[g] < 1e30).sum()) if live.any() else 0):
+                k = int(sel[g, rr])
+                prod = rt @ cm.w[k]
+                t = tmxu._epilogue(prod, cm.block, lb[g, rr].expand(rt.shape[0]))
+                assert (t >= 1e30).all(), (g, rr)  # no accepted t below lb[g, rr]
+                own = torch.minimum(entry[rows, k], t0[rows])[live]
+                t = tmxu._epilogue(prod, cm.block, own)
+                assert (t >= 1e30).all(), (g, rr)  # nor below the ray's own entry
+                rounds += 1
+                skipped += int((entry[rows, k][live] >= t0[rows][live]).sum())
+    assert rounds > 20 and skipped > rounds  # most rays of a tile skip most of its blocks
 
 
 def test_sweep_matches_jax_ref_and_pallas_interpret():

@@ -15,10 +15,12 @@ triangle counts that are not a multiple of the brute force's block, rays
 with d = 0 among the brute force's, as many rounds as blocks, a single
 tile, gathers of n not a multiple of 4 or under one thread block, the
 sweep in both launch shapes, and bad arguments. Tolerances: slab cull,
-sphere cull, argmin bins, extraction and gather-to-columns bit for bit;
-walk, rounds, sweep and brute-force triangle ids exactly and t within
-1e-5 relative (their 10-term sums may round differently from the batched
-product); the pair test's loc on >= 99.9% of real pairs and t within
+sphere cull, argmin bins, extraction, gather-to-columns, and the rounds'
+t and ids (the round loop's skips are exact, and its sparse chain sums
+the batched product's terms in their order) bit for bit; kernel 7
+against kernel 6 bit for bit; walk, sweep and brute-force triangle ids
+exactly and t within 1e-5 relative (their 10-term sums may round
+differently from the batched product); the pair test's loc on >= 99.9% of real pairs and t within
 2^-12 relative (the same rounding, seen through the 2^-13 truncation of
 the packed key); the scatter-add of kernel 4 per entry within 1e-5 of
 the sum of the |contributions| to it (its float
@@ -310,7 +312,7 @@ def test_pair_runs_kernel_matches_plain(cuda, block, ptile):
     blk_s, src = torch.sort(flat, stable=True)
     featp = feat[torch.clamp_max(src // 3, 4095)]
     before = tpairs.PAIR_RUNS.launches
-    got = tpairs.pair_runs(blk_s, featp, cm.w, block, ptile, cm.n_real_blocks)
+    got = tpairs.pair_runs(blk_s, featp, cm, ptile, cm.n_real_blocks)
     want = tpairs._pair_runs_ref(blk_s, featp, cm.w, block, cm.n_real_blocks)
     assert tpairs.PAIR_RUNS.launches == before + 1
     tiles = blk_s.reshape(-1, ptile)
@@ -357,26 +359,46 @@ def _many_run_pairs(cm, ptile, runs_per_tile, seed):
     return torch.tensor(blk_s, device=dev), tpairs._feat16t(od).contiguous()
 
 
-@pytest.mark.parametrize("block, ptile", [(64, 1024), (256, 1024), (1024, 1024), (256, 256),
-                                          (64, 64)])
-def test_pair_bdiag_kernel_matches_plain_and_pair_runs(cuda, block, ptile):
-    """Kernel 7 with 8 (block 64), 5 (256) and 1 (1024) weight slots a
-    round, on tiles of 1, 3, 8 and 13 runs (more runs than slots: several
-    rounds), runs that cross tiles, a half-sentinel and an all-sentinel
-    tile: against its plain version (the pair-test tolerance) and against
-    kernel 6 on the same pairs, bit for bit (the same arithmetic per
-    (pair, triangle))."""
+# Pairs a thread block of kernel 7 takes (csrc/pair_bdiag.cu kThreads).
+BDIAG_PART = 256
+
+
+@pytest.mark.parametrize("block, ptile, runs, rounds", [
+    (64, 1024, [1, 3, 8, 13], ""), (256, 1024, [1, 3, 8, 13], ""),
+    (1024, 1024, [1, 3, 8, 13], "several"), (256, 256, [1, 3, 8, 13], "several"),
+    (64, 64, [1, 3, 8, 13], "several"),
+    (64, 256, [20, 40, 1], "several"),  # parts of more runs than 8 slots
+    (256, 1024, [1, 1, 1], "one"),  # one-run tiles
+    (9, 512, [2, 5, 30], "several"),  # runs not 16-byte aligned
+])
+def test_pair_bdiag_kernel_matches_plain_and_pair_runs(cuda, block, ptile, runs, rounds):
+    """Kernel 7 with 8 (blocks of 64 and 9), 3 (256) and 1 (1024) weight
+    slots a round, on tiles of up to 40 runs (parts of more runs than slots:
+    several rounds, the next round's copies in flight) and of one run each,
+    runs that cross tiles and parts, a half-sentinel and an all-sentinel
+    tile, on padded tables (real < block): against its plain version (the
+    pair-test tolerance) and against kernel 6 on the same pairs, bit for bit
+    (the same hits and arithmetic per (pair, triangle): the sparse test
+    gives the dense test's floats)."""
     cm = build_cluster_mesh(_mesh(5 if block < 1024 else 6), block=block, device=cuda)
-    runs = [1, 3, 8, min(13, ptile // 2)]
-    blk_s, featp = _many_run_pairs(cm, ptile, runs, seed=block + ptile)
+    assert (cm.real[:cm.n_real_blocks] < block).any()
+    runs = [min(k, ptile // 2) for k in runs]
+    blk_s, featp = _many_run_pairs(cm, ptile, runs, seed=block + ptile + len(runs))
     slots = tpairs.PAIR_BDIAG.call_int("pair_bdiag_slots", block, cuda_build.MAX_SMEM)
-    assert slots == {64: 8, 256: 5, 1024: 1}[block]
+    assert slots == {9: 8, 64: 8, 256: 2, 1024: 1}[block]
+    parts = blk_s[:len(runs) * ptile].reshape(-1, min(ptile, BDIAG_PART))
+    starts = torch.ones_like(parts, dtype=torch.bool)
+    starts[:, 1:] = parts[:, 1:] != parts[:, :-1]
+    if rounds == "several":
+        assert int(starts.sum(dim=1).max()) > slots  # some part takes several rounds
+    if rounds == "one":
+        assert bool((starts.sum(dim=1) == 1).all())
     before = tpairs.PAIR_BDIAG.launches
-    got = tpairs.pair_bdiag(blk_s, featp, cm.w, block, ptile, cm.n_real_blocks)
+    got = tpairs.pair_bdiag(blk_s, featp, cm, ptile, cm.n_real_blocks)
     assert tpairs.PAIR_BDIAG.launches == before + 1
     want = tpairs._pair_runs_ref(blk_s, featp, cm.w, block, cm.n_real_blocks)
     _check_packed(got, want, blk_s, cm.n_real_blocks)
-    k6 = tpairs.pair_runs(blk_s, featp, cm.w, block, min(ptile, 256), cm.n_real_blocks)
+    k6 = tpairs.pair_runs(blk_s, featp, cm, min(ptile, 256), cm.n_real_blocks)
     assert torch.equal(got, k6)
 
 
@@ -385,11 +407,16 @@ def test_pair_bdiag_checks_its_arguments(cuda):
     blk_s, featp = _many_run_pairs(cm, 256, [2], seed=0)
     for ptile in (48, 2048, 512):  # not a multiple of 32; over 1024; 768 pairs in 512s
         with pytest.raises(ValueError):
-            tpairs.pair_bdiag(blk_s, featp, cm.w, 64, ptile, cm.n_real_blocks)
+            tpairs.pair_bdiag(blk_s, featp, cm, ptile, cm.n_real_blocks)
     with pytest.raises(ValueError):
-        tpairs.pair_bdiag(blk_s.long(), featp, cm.w, 64, 256, cm.n_real_blocks)
+        tpairs.pair_bdiag(blk_s.long(), featp, cm, 256, cm.n_real_blocks)
     with pytest.raises(ValueError):
-        tpairs.pair_bdiag(blk_s, featp.double(), cm.w, 64, 256, cm.n_real_blocks)
+        tpairs.pair_bdiag(blk_s, featp.double(), cm, 256, cm.n_real_blocks)
+    with pytest.raises(ValueError):  # a real-slot count short of the table
+        tpairs.pair_bdiag(blk_s, featp, cm._replace(real=cm.real[:-1].contiguous()), 256,
+                          cm.n_real_blocks)
+    with pytest.raises(ValueError):
+        tpairs.pair_bdiag(blk_s, featp, cm._replace(real=cm.real.long()), 256, cm.n_real_blocks)
 
 
 def test_pair_bdiag_intersector_on_cuda_matches_cpu(cuda):
@@ -483,9 +510,9 @@ def test_new_wrappers_check_their_arguments(cuda):
     ids, _, _, feat = tpairs.extract(x, cm.slab, cm.blk, 1)
     blk_s = ids.reshape(-1)
     with pytest.raises(ValueError):  # 1024 pairs in tiles of 384
-        tpairs.pair_runs(blk_s, feat, cm.w, 64, 384, cm.n_real_blocks)
+        tpairs.pair_runs(blk_s, feat, cm, 384, cm.n_real_blocks)
     with pytest.raises(ValueError):
-        tpairs.pair_runs(blk_s.long(), feat, cm.w, 64, 256, cm.n_real_blocks)
+        tpairs.pair_runs(blk_s.long(), feat, cm, 256, cm.n_real_blocks)
     v = cm.tris.v0
     with pytest.raises(ValueError):  # 81-ray tiles: not a whole number of threads
         mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, ray_tile=81)
@@ -560,34 +587,60 @@ def test_argmin_kernel_bit_equal(cuda, subdiv, block):
     assert torch.equal(got, want)
 
 
-def _round_inputs(cm, n, tile, rounds, seed):
+def _round_inputs(cm, n, tile, rounds, seed, with_over=False):
     """The rounds' inputs for n rays in tiles of ``tile``; the last tile
-    is all dead when there are several."""
+    is all dead when there are several. With ``with_over``, also each
+    tile's entry bound of the first feasible block left out (BIG when the
+    list holds them all)."""
     x = _records(cm, n, tile if n > tile else 128, seed)
-    sel, lb, _ = tcl._select(tcl._cull_ref(x, cm.cull_w, cm.blk, tile), rounds)
-    return sel, lb, tcl._ray_rows(x), x[:, 6].contiguous(), x[:, 7].contiguous()
+    sel, lb, over = tcl._select(tcl._cull_ref(x, cm.cull_w, cm.blk, tile), rounds)
+    out = (sel, lb, tcl._ray_rows(x), x[:, 6].contiguous(), x[:, 7].contiguous())
+    return out + (over,) if with_over else out
+
+
+# Rays a thread block of kernel 10 takes (csrc/cluster_rounds.cu kPart).
+ROUNDS_PART = 256
 
 
 @pytest.mark.parametrize("block, tile, rounds, n_tiles", [
-    (64, 256, 4, 8), (256, 1024, 64, 8), (1024, 128, 16, 8),
+    (64, 256, 4, 8), (256, 1024, 64, 8), (1024, 128, 16, 8), (256, 1024, 4, 8),
     (64, 512, 1 << 20, 4),  # R = kp (select caps the rounds)
+    (256, 1024, 1 << 20, 4),
     (256, 1024, 8, 1),  # one tile
+    (9, 384, 8, 8),  # runs not 16-byte aligned; tiles of a part and a half
+    (8, 200, 1 << 20, 4),  # tiles of less than a part
 ])
 def test_cluster_rounds_kernel_matches_plain(cuda, block, tile, rounds, n_tiles):
+    """Kernel 10 against its plain version, t and ids bit for bit (its skips
+    are exact and the sparse test gives the dense test's floats): padded
+    tables (real < block), R below some tiles' feasible count and R = K, an
+    all-dead tile, one tile alone."""
     cm = build_cluster_mesh(_mesh(5), block=block, device=cuda)
+    assert (cm.real[:cm.n_real_blocks] < block).any()
     n = n_tiles * tile
-    sel, lb, r, t0, act = _round_inputs(cm, n, tile, rounds, seed=block + tile)
+    sel, lb, r, t0, act, over = _round_inputs(cm, n, tile, rounds, seed=block + tile,
+                                              with_over=True)
     if rounds > cm.n_blocks:
         assert sel.shape[1] == cm.n_blocks
+    else:
+        assert bool((over < 1e30).any())  # some tile has more feasible blocks than R
     if n_tiles > 1:  # the dead last tile has an empty list
         assert bool((lb[-1] >= 1e30).all())
     before = tcl.ROUNDS.launches
-    bt_k, btri_k = tcl.cluster_rounds(sel, lb, r, t0, act, cm.w, tile, block)
+    counts = torch.zeros((n_tiles, 2), dtype=torch.int32, device=cuda)
+    bt_k, btri_k = tcl.cluster_rounds(sel, lb, r, t0, act, cm, tile, rounds=counts)
     bt_p, btri_p = tcl._cluster_ref(sel, lb, r, t0, act, cm.w, tile, block, sel.shape[1])
     assert tcl.ROUNDS.launches == before + 1
     assert int((btri_p >= 0).sum()) > (n // 8 if rounds >= 16 else 10)
     assert torch.equal(btri_k, btri_p)
-    torch.testing.assert_close(bt_k, bt_p, rtol=1e-5, atol=0)
+    assert torch.equal(bt_k, bt_p)
+    nsel = (lb < 1e30).sum(dim=1)
+    parts = -(-tile // ROUNDS_PART)
+    assert (counts[:, 0] <= nsel * parts).all() and int(counts[:, 0].sum()) > 0
+    if n_tiles > 1:
+        assert not counts[-1].any()
+    again = tcl.cluster_rounds(sel, lb, r, t0, act, cm, tile)
+    assert torch.equal(again[0], bt_k) and torch.equal(again[1], btri_k)
 
 
 @pytest.mark.parametrize("block, tile", [(64, 256), (256, 1024), (1024, 512)])
@@ -635,9 +688,15 @@ def test_cluster_wrappers_check_their_arguments(cuda):
     with pytest.raises(ValueError):
         tcl.cull(x, cm.cull_w[:, :-1].contiguous(), cm.blk, 256)
     with pytest.raises(ValueError):
-        tcl.cluster_rounds(sel.long(), lb, r, t0, act, cm.w, 256, 64)
-    with pytest.raises(ValueError):  # 2048-triangle blocks need 320 KB
-        tcl.cluster_rounds(sel, lb, r, t0, act, cm.w, 256, 2048)
+        tcl.cluster_rounds(sel.long(), lb, r, t0, act, cm, 256)
+    with pytest.raises(ValueError):  # 2048-triangle blocks need 257 KB staged
+        tcl.cluster_rounds(sel, lb, r, t0, act, cm._replace(block=2048), 256)
+    with pytest.raises(ValueError):  # a real-slot count short of the table
+        tcl.cluster_rounds(sel, lb, r, t0, act, cm._replace(real=cm.real[:-1].contiguous()), 256)
+    with pytest.raises(ValueError):  # a slab table without its hi rows
+        tcl.cluster_rounds(sel, lb, r, t0, act, cm._replace(slab=cm.slab[:3].contiguous()), 256)
+    with pytest.raises(ValueError):
+        tcl.cluster_rounds(sel, lb, r, t0, act, cm, 384)  # does not divide n
     btri = torch.full((1024,), -1, dtype=torch.int32, device=cuda)
     rows = torch.arange(0, 1024, 3, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):

@@ -164,7 +164,7 @@ def test_pair_runs_plain_matches_pallas_interpret():
     feat = np.asarray(jpairs._feat16t(jnp.asarray(od)))
     want = np.asarray(jpairs._pair_runs_pallas(jnp.asarray(blk_s), jnp.asarray(feat),
                                                jcm.w, jcm.block, 256, kreal, True))
-    got = tpairs.pair_runs(_t(blk_s), _t(feat), tcm.w, tcm.block, 256, kreal).numpy()
+    got = tpairs.pair_runs(_t(blk_s), _t(feat), tcm, 256, kreal).numpy()
     assert (want < tpairs._PBIG).sum() > 150  # front faces hit
     assert (got[800:] == tpairs._PBIG).all()
     np.testing.assert_array_equal(want, got)
@@ -219,14 +219,14 @@ def test_pair_bdiag_plain_matches_jax_runs_kernel():
     mesh, jcm, tcm = _tables(4)
     ptile, kreal = 1024, jcm.n_real_blocks
     blk_s, feat = _supertile_pairs(jcm, [1, 3, 8, 12], ptile, seed=3)
-    got = tpairs.pair_bdiag(_t(blk_s), _t(feat), tcm.w, tcm.block, ptile, kreal).numpy()
+    got = tpairs.pair_bdiag(_t(blk_s), _t(feat), tcm, ptile, kreal).numpy()
     want = np.asarray(jpairs._pair_runs_pallas(jnp.asarray(blk_s), jnp.asarray(feat), jcm.w,
                                                jcm.block, ptile, kreal, True))
     assert (want < tpairs._PBIG).mean() > 0.5
     assert (got[blk_s >= kreal] == tpairs._PBIG).all()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
-        got, tpairs.pair_runs(_t(blk_s), _t(feat), tcm.w, tcm.block, 256, kreal).numpy())
+        got, tpairs.pair_runs(_t(blk_s), _t(feat), tcm, 256, kreal).numpy())
     t_s, loc_s = jpairs._pair_slots_ref(jnp.asarray(blk_s)[:, None], jnp.asarray(feat), jcm.w,
                                         jcm.block, kreal)
     t_g, loc_g = tpairs._unpack_tl(_t(got))
@@ -252,8 +252,7 @@ def test_jax_bdiag_interpret_reads_unstaged_slots():
         bdiag_k = np.asarray(jpairs._pair_bdiag_pallas(*args))
         assert (runs_k < tpairs._PBIG).sum() > 100
         np.testing.assert_array_equal(
-            runs_k, tpairs.pair_bdiag(_t(blk_s), _t(feat), tcm.w, tcm.block, 256,
-                                      kreal).numpy())
+            runs_k, tpairs.pair_bdiag(_t(blk_s), _t(feat), tcm, 256, kreal).numpy())
         if runs == 8:
             np.testing.assert_array_equal(bdiag_k, runs_k)
         else:
