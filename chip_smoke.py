@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--shapes]
+    python3 chip_smoke.py [--shapes [NAMES]] [--launches]
 
 Builds the port's twelve CUDA kernels (twelve sources, one for each TPU
 kernel) from ``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per
@@ -20,9 +20,11 @@ KD walk, brute force) and its gradient path on Cornell + an
    are exact, t and ids equal to the plain version's on every ray, on a
    padded table and with all-dead tiles, and its executed (tile, block)
    rounds beside the needed ones, its time beside its earlier figure);
-   pass 1's and pass 2's extraction (bit for bit) and pass 1's pair test
-   (loc on >= 99.99% of real pairs, t within 2^-12 relative) from the
-   pair path;
+   pass 1's and pass 2's extraction (bit for bit; its group premise on
+   every ray, for groups of 4, 8 and 16 blocks, with the group and member
+   tests the two-level cull runs and the groups each warp met) and pass
+   1's and pass 2's pair test (loc on >= 99.99% of real pairs, t within
+   2^-12 relative) from the pair path;
    the brute force on a 16,384-ray slice of that bounce, rays with d = 0
    among them (ids on >= 99.99%, t within 1e-5 relative), timed on the
    full bounce with the dead rays' d = 0 (as the oracle calls pass them)
@@ -56,12 +58,22 @@ KD walk, brute force) and its gradient path on Cornell + an
    intersectors against the brute-force kernel on every ray of that
    bounce (ids on >= 99.99%, t within 1e-5 relative), with the
    flagged-ray count and the repair;
+3b. ``[launches]``: each launch of kernels 5 and 6 over one iteration of
+   the pair path, with its bounce, pass, round, rays or pairs, and device
+   time (``--launches`` runs only this, after the build: it uses only
+   entry points every tree of the port has, so it can time an earlier
+   tree's kernels);
 4b. ``[shapes]``, only with ``--shapes`` (the measurement that chose the
-   launch-shape constants of kernels 2, 8, 10 and 7): the walk, the brute
-   force, the rounds and kernel 7 built with other launch shapes (rays a
+   launch-shape constants of kernels 2, 8, 10, 7, 6 and 5; ``--shapes
+   pair_runs,pair_extract`` times only those): the walk, the brute force,
+   the rounds, kernels 7, 6 and 5 built with other launch shapes (rays a
    thread, threads, thread blocks an SM holds; for the walk and the
-   rounds, the triangle loop's unroll) and timed on the same inputs, each
-   equal to the sources' own shape bit for bit;
+   rounds, the triangle loop's unroll; for kernel 6, the rounds above
+   which a part reads its weights directly; for kernel 5, its blocks a
+   group and its split form's lanes a ray) and timed on the same inputs
+   (kernel 6 also on pass 2's call and bounce 0's heaviest launch, kernel
+   5 on pass 2's and in its split form on pass 1's), each equal to the
+   sources' own shape bit for bit;
 5. golden parity: ``cornell_64``, ``cornell_spec_64`` (every pixel but
    the ten its jit render branched), ``mesh_pairs_48`` in its own (pair)
    config and in walk, cluster-rounds and binned config, ``mesh_kd_48``
@@ -194,6 +206,14 @@ RAY_FEATURE_BYTES = 10 * 4
 # its key and compare it with the kept ones.
 EXTRACT_OPS_PER_PAIR = 3 * 8 + 9
 EXTRACT_OPS_PER_FEASIBLE = 2
+# Float32 operations of one (live ray, non-empty group) test of kernel 5's
+# two-level cull: the slab parameters (per axis 2 multiplies, 2 subtracts,
+# 4 min/max), the bound on its members' slack (2 abs, 2 multiplies, 2
+# adds, max), its entry and exit (subtract, max, add) and 3 compares.
+EXTRACT_OPS_PER_GROUP = 3 * 8 + 7 + 3 + 3
+# Group sizes whose premise chip_smoke.py checks on kernel 5's calls (the
+# blocks a group [shapes] times).
+EXTRACT_GROUPS = (4, 8, 16)
 # Float32 operations per (live ray, real block) pair of the sphere cull
 # and the argmin bins: two three-term dot products (3 multiplies, 2 adds
 # each), t_ca (1), dline2 (2 multiplies, 3 add/subtract), the entry
@@ -254,14 +274,21 @@ SWEEP_EXTRA = ("rows", "slices", "one_pass_ms", "full_width_ms", "full_width_bou
 # The brute force's record also gives its time on the brute route's own
 # inputs (dead lanes keep their directions).
 BRUTE_EXTRA = ("path_inputs_ms",)
+# The pair kernels' records also give the pair path's pass-2 call (kernel 5:
+# also its other form on each call, and the (ray, block or group) tests it
+# ran on the pass-1 call).
+PAIR_EXTRA = ("pass2_ms", "pass2_plain_ms", "pass2_bound_ms", "pass2_bound_by",
+              "pass2_one_lane_ms", "split_ms", "tests_run")
 # Each main path's image and its iteration count (phase_main_path).
 IMAGES = {}
-# Launch shapes [shapes] times for kernels 2, 8, 10 and 7: the values of
-# each source's SHAPE_CONSTANTS (rays a thread, threads a thread block,
-# thread blocks an SM must hold under __launch_bounds__; kernel 7 takes
-# one pair a thread, and sizes its weight slots for its blocks an SM); the
-# first is the source's own. The brute force's ray tile is rays a thread x
-# threads.
+# Launch shapes [shapes] times for kernels 2, 8, 10, 7, 6 and 5: the values
+# of each source's SHAPE_CONSTANTS (rays a thread, threads a thread block,
+# thread blocks an SM must hold under __launch_bounds__; kernels 7 and 6
+# take one pair a thread, and size their weight slots for their blocks an
+# SM; kernel 6's rounds above which a part reads its weights directly, 0
+# for never; kernel 5's blocks a group and lanes a ray in its
+# split form); the first is the source's own. The brute force's ray tile
+# is rays a thread x threads.
 SHAPES = {"walk": ((1, 128, 6, 0), (1, 128, 6, 4), (1, 128, 6, 8), (1, 256, 4, 4),
                    (4, 256, 2, 0), (2, 256, 2, 0), (2, 256, 3, 0), (4, 128, 4, 0), (8, 128, 2, 0),
                    (2, 512, 1, 0), (1, 1024, 1, 0), (2, 128, 4, 0), (1, 256, 4, 0), (1, 64, 6, 0)),
@@ -270,13 +297,19 @@ SHAPES = {"walk": ((1, 128, 6, 0), (1, 128, 6, 4), (1, 128, 6, 8), (1, 256, 4, 4
           "cluster_rounds": ((1, 256, 4, 8), (1, 256, 4, 0), (1, 256, 4, 4), (1, 256, 3, 8),
                              (1, 128, 6, 0), (1, 128, 6, 8), (2, 128, 4, 4), (1, 512, 2, 4),
                              (1, 1024, 1, 0)),
-          "pair_bdiag": ((256, 3), (256, 2), (256, 4), (128, 4), (128, 2), (512, 1), (1024, 1))}
+          "pair_bdiag": ((256, 3), (256, 2), (256, 4), (128, 4), (128, 2), (512, 1), (1024, 1)),
+          "pair_runs": ((256, 3, 2), (256, 3, 0), (256, 3, 1), (256, 3, 4), (256, 2, 2),
+                        (256, 4, 2), (128, 4, 2), (128, 6, 2)),
+          "pair_extract": ((128, 1, 8, 4), (128, 1, 8, 2), (128, 1, 8, 8), (128, 1, 4, 4),
+                           (128, 1, 16, 4), (128, 2, 8, 4), (256, 1, 8, 4))}
 # The constants SHAPES sets in each source, in order (kUnroll: the triangle
 # loop's unroll, 0 leaving it to the compiler).
 SHAPE_CONSTANTS = {"walk": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
                    "mxu_bf": ("kRpt", "kThreads", "kMinBlocks"),
                    "cluster_rounds": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
-                   "pair_bdiag": ("kThreads", "kMinBlocks")}
+                   "pair_bdiag": ("kThreads", "kMinBlocks"),
+                   "pair_runs": ("kThreads", "kMinBlocks", "kDirectRounds"),
+                   "pair_extract": ("kThreads", "kRpt", "kGroup", "kSplitLanes")}
 # The brute force's triangle blocks [shapes] also times (the wrapper's
 # default is 512).
 BRUTE_TRI_BLOCKS = (256, 1024)
@@ -486,6 +519,22 @@ def bound(nbytes: float, ops: float) -> dict:
                 bound_by="operations" if t_ops > t_bytes else "bytes")
 
 
+def pair_bound(blk_s, cm, kreal) -> tuple:
+    """The least time of the pair test on one call (kernels 6 and 7): each
+    pair's block id read and its packed result written, the RAY_FEATURE_BYTES
+    of each real pair (a sentinel pair's features are not needed), the
+    TRI_BYTES of each real triangle of a block a real pair names; 46
+    operations a (real pair, real triangle) test. -> (bound dict, pair
+    tests, blocks named)."""
+    real = blk_s < kreal
+    named = blk_s[real].long()
+    used = torch.unique(named)
+    nbytes = (blk_s.numel() * (4 + 4) + int(real.sum()) * RAY_FEATURE_BYTES
+              + int(cm.real[used].sum()) * TRI_BYTES)
+    pair_tests = int(cm.real[named].sum())
+    return bound(nbytes, pair_tests * MT_OPS_PER_TEST), pair_tests, int(used.numel())
+
+
 def phase_kernels(scene, config, device) -> dict:
     """Kernel vs plain version on the main path's inputs at bounce 1."""
     n = int(scene.camera.resolution[0]) * int(scene.camera.resolution[1])
@@ -611,6 +660,112 @@ def bounce_args(scene, config, intersector: str, device):
     return rec.args, rec.kwargs
 
 
+def source_shape(name: str) -> tuple:
+    """The SHAPE_CONSTANTS values csrc/<name>.cu is built with."""
+    text = (cuda_build.CSRC / f"{name}.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {c} = (\d+);", text).group(1))
+                 for c in SHAPE_CONSTANTS[name])
+
+
+def extract_groups(label, x, slab, blk, rpt: int, lanes: int) -> dict:
+    """Kernel 5's two-level cull on one call: the group premise, that every
+    block with a finite ``_slab_entry_math`` entry lies in a group whose
+    ``_group_entry`` is finite (checked for groups of 4, 8 and 16; a block
+    outside fails the run), and for each group size the tests the cull
+    runs there. A warp holds 32 threads of ``rpt`` adjacent rays, or (the
+    split form) 32 / ``lanes`` rays of ``lanes`` lanes, lane s taking
+    groups s, s + lanes, ...; at each step it runs the member tests of its
+    lanes' groups when the group test passes for one of its live rays. ->
+    {G: dict(group_tests: live rays x non-empty groups, member_tests: live
+    rays x real members of the groups whose member tests their warp runs,
+    lane_tests: the same for every ray of such a warp, met_mean and
+    met_max: the steps with member tests per warp with a live ray,
+    steps)}."""
+    kp = slab.shape[1]
+    n = x.shape[0]
+    live = x[:, 7] > 0
+    real = blk[5] >= 0
+    warp = 32 * rpt // lanes  # rays a warp
+    rows = 32768  # rays a chunk: a multiple of every warp's
+    out = {}
+    for G in EXTRACT_GROUPS:
+        gslab = tpairs._group_slab(slab, blk, G)
+        ng = gslab.shape[1]
+        steps = -(-ng // lanes)
+        members = torch.zeros((steps * lanes * G,), dtype=torch.float32, device=x.device)
+        members[:kp] = real.float()
+        members = members.reshape(steps, lanes * G).sum(dim=1)  # real members a step tests
+        group_of = torch.arange(kp, device=x.device) // G
+        bad = member_tests = lane_tests = 0
+        met = []
+        for r0 in range(0, n, rows):
+            xs, ls = x[r0:r0 + rows], live[r0:r0 + rows]
+            feasible = twalk._slab_entry_math(xs, slab, blk, kp) < BIG
+            gmeet = tpairs._group_entry(xs, gslab) < BIG
+            bad += int((feasible & ~gmeet[:, group_of]).sum())
+            gmeet = torch.cat([gmeet, gmeet.new_zeros((gmeet.shape[0], steps * lanes - ng))],
+                              dim=1).reshape(-1, steps, lanes).any(dim=2)
+            pad = -xs.shape[0] % warp
+            if pad:
+                gmeet = torch.cat([gmeet, gmeet.new_zeros((pad, steps))])
+                ls = torch.cat([ls, ls.new_zeros((pad,))])
+            wmeet = gmeet.reshape(-1, warp, steps).any(dim=1)
+            wlive = ls.reshape(-1, warp).sum(dim=1)
+            wtests = wmeet.float() @ members
+            member_tests += int((wtests * wlive).sum())
+            lane_tests += int((wtests * warp * (wlive > 0)).sum())
+            met.append(wmeet.sum(dim=1)[wlive > 0])
+        if bad:
+            raise AssertionError(f"pair_extract {label}: {bad} feasible (ray, block) pairs lie in "
+                                 f"a group of {G} whose group test fails")
+        met = torch.cat(met).float()
+        out[G] = dict(group_tests=int(live.sum()) * int((gslab[6] > 0).sum()),
+                      member_tests=member_tests, lane_tests=lane_tests,
+                      met_mean=met.mean().item() if met.numel() else 0.0,
+                      met_max=int(met.max()) if met.numel() else 0, steps=steps)
+    return out
+
+
+def check_pair_runs(label, blk_s, featp, cm, ptile, kreal) -> dict:
+    """Kernel 6 against its plain version on one recorded call: loc on
+    >= 99.99% of real pairs, t within 2^-12 relative, sentinel pairs left
+    at _PBIG. The kernel's 10-term FMA chains and the plain version's
+    matmul may round a sum differently: a t one ulp apart can move across
+    a 2^-13 truncation step or an edge test, so loc may differ on a
+    near-tie and t by up to one truncation step."""
+    w, block = cm.w, cm.block
+    got = tpairs.pair_runs(blk_s, featp, cm, ptile, kreal)
+    want = tpairs._pair_runs_ref(blk_s, featp, w, block, kreal)
+    sync(blk_s.device)
+    real = blk_s < kreal
+    tg, lg = tpairs._unpack_tl(got)
+    tw, lw = tpairs._unpack_tl(want)
+    n_real = int(real.sum())
+    loc_eq = (lg == lw)[real].float().mean().item() if n_real else 1.0
+    both = real & (tg < 1e30) & (tw < 1e30)
+    rel = ((tg - tw).abs() / tw.abs().clamp_min(1e-30))[both]
+    rel_max = rel.max().item() if rel.numel() else 0.0
+    log(f"[kernels] pair_runs {label}: {n_real} real of {blk_s.shape[0]} pairs, "
+        f"{int(both.sum())} hit; loc equal on {loc_eq:.6%}; max |dt|/t {rel_max:.3g}; "
+        f"packed equal on {(got == want)[real].float().mean().item() if n_real else 1.0:.6%}")
+    if (got[~real] != tpairs._PBIG).any():
+        raise AssertionError(f"pair_runs {label}: a sentinel pair was not left at _PBIG")
+    if loc_eq < 0.9999 or rel_max > 2.0 ** -12:
+        raise AssertionError(f"pair_runs {label} differs from its plain version beyond its "
+                             f"tolerance")
+    pbound, pair_tests, blocks_used = pair_bound(blk_s, cm, kreal)
+    res = dict(
+        max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
+        ms=time_ms(lambda: tpairs.pair_runs(blk_s, featp, cm, ptile, kreal), 20),
+        plain_ms=time_ms(lambda: tpairs._pair_runs_ref(blk_s, featp, w, block, kreal), 3),
+        library_ms=None, **pbound,
+        shape=f"{blk_s.shape[0]} pairs ({n_real} real, {blocks_used} blocks) in tiles of "
+              f"{ptile}, blocks of {block} slots, {pair_tests} (real pair, real triangle) tests")
+    log(f"[kernels] pair_runs {label}: {res['shape']}; kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
+
+
 def phase_pairs(scene, device):
     """Kernels 5, 6 and 8 against their plain versions on the pair path's
     second bounce, and the pair list against the brute force on all of
@@ -624,15 +779,26 @@ def phase_pairs(scene, device):
         hit_p, stats = tpairs.intersect_mesh_pairs(*args, **kwargs, collect_stats=True)
     sync(device)
     log(f"[pairs] bounce 1 stats: {stats}")
+    if not stats["p2_rounds"]:
+        raise AssertionError("the pair path's bounce 1 ran no second pass")
+    # pass 2's first pair test comes after pass 1's n1_rounds
+    with Recorder(tpairs, "pair_runs", stats["n1_rounds"]) as rr2:
+        tpairs.intersect_mesh_pairs(*args, **kwargs)
+    sync(device)
     results = {}
 
-    # -- extraction, passes 1 and 2: bit-equal ----------------------------
+    # -- extraction, passes 1 and 2: bit-equal; the group premise ---------
+    threads, rpt, group, split_lanes = source_shape("pair_extract")
+    log(f"[kernels] pair_extract: {threads} threads a thread block, {rpt} rays a thread "
+        f"({split_lanes} lanes a ray in the split form, pass 2's), "
+        + f"groups of {group} blocks")
     for label, rec in (("pass 1", r1), ("pass 2", r2)):
-        if rec.args is None:
-            log(f"[kernels] pair_extract {label}: not reached at this bounce")
-            continue
         x, slab, blk, F = rec.args
-        got = tpairs.extract(x, slab, blk, F)
+        split = bool(rec.kwargs.get("split", False))
+        if split != (label == "pass 2"):
+            raise AssertionError(f"pair_extract {label}: split is {split}")
+        SHAPE_INPUTS[f"pair_extract {label}"] = (x, slab, blk, F, split)
+        got = tpairs.extract(x, slab, blk, F, split)
         want = tpairs._extract_ref(x, slab, blk, F)
         sync(device)
         for name, a, b in zip(("ids", "lbov", "cnt", "feat"), got, want):
@@ -642,62 +808,66 @@ def phase_pairs(scene, device):
         live = int((x[:, 7] > 0).sum())
         k_real = int((blk[5] >= 0).sum())
         feasible = int(want[2].sum())
+        groups = extract_groups(label, x, slab, blk, 1 if split else rpt,
+                                split_lanes if split else 1)
         nbytes = (x.numel() + slab.numel() + blk.numel()
                   + sum(t.numel() for t in got)) * 4
-        ops = live * k_real * EXTRACT_OPS_PER_PAIR + feasible * EXTRACT_OPS_PER_FEASIBLE
+        flat_tests = live * k_real
+        ops = flat_tests * EXTRACT_OPS_PER_PAIR + feasible * EXTRACT_OPS_PER_FEASIBLE
         res = dict(
             max_abs_err=0.0,
-            ms=time_ms(lambda: tpairs.extract(x, slab, blk, F), 20),
+            ms=time_ms(lambda: tpairs.extract(x, slab, blk, F, split), 20),
             plain_ms=time_ms(lambda: tpairs._extract_ref(x, slab, blk, F), 3),
             library_ms=None, **bound(nbytes, ops),
             shape=f"x [{x.shape[0]},16] ({live} live), kp {blk.shape[1]} ({k_real} real), "
-                  f"F {F}, {feasible} feasible pairs")
+                  f"F {F}, {feasible} feasible pairs{', split' if split else ''}")
+        # the other form on the same call, for the record
+        res["other_form_ms"] = time_ms(lambda: tpairs.extract(x, slab, blk, F, not split), 20)
         log(f"[kernels] pair_extract {label} == plain bit for bit; {res['shape']}; "
             f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
-        results.setdefault("pair_extract", res)
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, every live ray x every real "
+            f"block: {flat_tests} tests)")
+        log(f"[kernels] pair_extract {label}: the group premise holds on all {x.shape[0]} rays "
+            f"for groups of {', '.join(map(str, EXTRACT_GROUPS))}")
+        log(f"[kernels] pair_extract {label}: the {'one-lane' if split else 'split'} form on "
+            f"the same call {res['other_form_ms']:.4f} ms")
+        warp = f"{32 // split_lanes} rays of {split_lanes} lanes" if split else f"{32 * rpt} rays"
+        for G, g in groups.items():
+            log(f"[kernels] pair_extract {label}, groups of {G} (warps of {warp}): "
+                f"{g['group_tests']} group tests + {g['member_tests']} member tests = "
+                f"{g['group_tests'] + g['member_tests']} ray tests ({g['lane_tests']} member "
+                f"tests counting every ray of a warp that runs them) against {flat_tests} "
+                f"flat; steps with member tests per warp with a live ray: mean "
+                f"{g['met_mean']:.2f}, max {g['met_max']} of {g['steps']}")
+        g = groups[group]
+        res["tests_run"] = g["group_tests"] + g["member_tests"]
+        hier = bound(nbytes, g["group_tests"] * EXTRACT_OPS_PER_GROUP
+                     + g["member_tests"] * EXTRACT_OPS_PER_PAIR
+                     + feasible * EXTRACT_OPS_PER_FEASIBLE)
+        log(f"[kernels] pair_extract {label}: the tests the groups of {group} need bound it "
+            f"at {hier['bound_ms']:.4f} ms ({hier['bound_by']})")
+        if res["ms"] < res["bound_ms"]:  # the flat count overstates the work
+            log(f"[kernels] pair_extract {label}: below the flat bound; its bound is "
+                f"restated to the tests the groups need")
+            res.update(hier)
+        if label == "pass 1":
+            res["split_ms"] = res.pop("other_form_ms")
+            results["pair_extract"] = res
+        else:
+            results["pair_extract"].update(
+                pass2_ms=res["ms"], pass2_plain_ms=res["plain_ms"],
+                pass2_bound_ms=res["bound_ms"], pass2_bound_by=res["bound_by"],
+                pass2_one_lane_ms=res["other_form_ms"])
 
-    # -- pair test, pass 1 round 1: loc on >= 99.99% of real pairs --------
-    # The kernel's 10-term FMA chains and the plain version's matmul may
-    # round a sum differently: a t one ulp apart can move across a 2^-13
-    # truncation step or an edge test, so loc may differ on a near-tie and
-    # t by up to one truncation step.
+    # -- pair test, pass 1 round 1 and pass 2 round 1 ---------------------
     blk_s, featp, cm, ptile, kreal = rr.args
-    w, block = cm.w, cm.block
-    got = tpairs.pair_runs(blk_s, featp, cm, ptile, kreal)
-    want = tpairs._pair_runs_ref(blk_s, featp, w, block, kreal)
-    sync(device)
-    real = blk_s < kreal
-    tg, lg = tpairs._unpack_tl(got)
-    tw, lw = tpairs._unpack_tl(want)
-    n_real = int(real.sum())
-    loc_eq = (lg == lw)[real].float().mean().item()
-    both = real & (tg < 1e30) & (tw < 1e30)
-    rel = ((tg - tw).abs() / tw.abs().clamp_min(1e-30))[both]
-    rel_max = rel.max().item() if rel.numel() else 0.0
-    log(f"[kernels] pair_runs: {n_real} real of {blk_s.shape[0]} pairs, "
-        f"{int(both.sum())} hit; loc equal on {loc_eq:.6%}; max |dt|/t {rel_max:.3g}; "
-        f"packed equal on {(got == want)[real].float().mean().item():.6%}")
-    if (got[~real] != tpairs._PBIG).any():
-        raise AssertionError("pair_runs: a sentinel pair was not left at _PBIG")
-    if loc_eq < 0.9999 or rel_max > 2.0 ** -12:
-        raise AssertionError("pair_runs differs from its plain version beyond its tolerance")
-    used = torch.unique(blk_s[real].long())
-    blocks_used = int(used.numel())
-    nbytes = ((blk_s.numel() + featp.numel() + got.numel()) * 4
-              + int(args[2].real[used].sum()) * TRI_BYTES)
-    # each real pair against the real triangles of its block
-    pair_tests = int(args[2].real[blk_s[real].long()].sum())
-    results["pair_runs"] = dict(
-        max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
-        ms=time_ms(lambda: tpairs.pair_runs(blk_s, featp, cm, ptile, kreal), 20),
-        plain_ms=time_ms(lambda: tpairs._pair_runs_ref(blk_s, featp, w, block, kreal), 3),
-        library_ms=None, **bound(nbytes, pair_tests * MT_OPS_PER_TEST),
-        shape=f"{blk_s.shape[0]} pairs ({n_real} real, {blocks_used} blocks) in tiles of {ptile}, "
-              f"blocks of {block} slots, {pair_tests} (real pair, real triangle) tests")
-    r = results["pair_runs"]
-    log(f"[kernels] pair_runs: {r['shape']}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    tmxu.check_sparse_pattern(cm.w)  # the sparse test's precondition
+    SHAPE_INPUTS["pair_runs pass 1"] = rr.args
+    SHAPE_INPUTS["pair_runs pass 2"] = rr2.args
+    results["pair_runs"] = check_pair_runs("pass 1", *rr.args)
+    res = check_pair_runs("pass 2", *rr2.args)
+    results["pair_runs"].update(pass2_ms=res["ms"], pass2_plain_ms=res["plain_ms"],
+                                pass2_bound_ms=res["bound_ms"], pass2_bound_by=res["bound_by"])
 
     # -- the pair list against the brute-force kernel, every ray ----------
     # (t within 2^-12: the pair list reports t truncated by its packed key)
@@ -772,8 +942,8 @@ def ptxas_summary(text: str) -> str:
     return ", ".join(f"{r} ({a}/{b})" for r, (a, b) in zip(regs, spills))
 
 
-def build_shapes() -> dict:
-    """Copies of the SHAPES sources with their other shapes' constants, one
+def build_shapes(names) -> dict:
+    """Copies of the SHAPES sources of ``names`` with their other shapes' constants, one
     nvcc each, all at once -> {(name, shape): (build directory, ptxas
     summary)}: each directory holds the library under the
     name ``cuda_build.library_path`` gives the source's own build, so that
@@ -782,9 +952,10 @@ def build_shapes() -> dict:
     out_dir = os.path.join(WORK, "shapes")
     jobs = {}
     for name, shapes in SHAPES.items():
+        if name not in names:
+            continue
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
-        own = tuple(int(re.search(rf"constexpr int {c} = (\d+);", text).group(1))
-                    for c in SHAPE_CONSTANTS[name])
+        own = source_shape(name)
         if own != shapes[0]:
             raise AssertionError(f"{name}.cu's shape {own} is not SHAPES' first {shapes[0]}")
         for shape in shapes[1:]:
@@ -821,18 +992,20 @@ def swapped(module, name: str, value):
         setattr(module, name, real)
 
 
-def phase_shapes(own_logs: dict) -> None:
-    """Kernels 2, 8, 10 and 7 in each of SHAPES, on the recorded calls of
-    phase_kernels (the walk path's bounce 1), phase_pairs (the brute
-    force's full bounce), phase_cluster (the cluster path's bounce 1) and
-    phase_bdiag: device ms and registers, and the outputs equal to the
-    sources' own shape's bit for bit (a ray's or a pair's result does not
-    depend on the shape). The brute force also at other triangle blocks."""
+def phase_shapes(own_logs: dict, names) -> None:
+    """Kernels 2, 8, 10, 7, 6 and 5 (or those of ``names``) in each of
+    SHAPES, on the recorded calls of phase_kernels (the walk path's bounce
+    1), phase_pairs (the brute force's full bounce; kernels 5 and 6 on the
+    pair path's bounce-1 pass-1 and pass-2 calls, kernel 5 also in its
+    split form on pass 1's), phase_launches (kernel
+    6's heaviest launch at bounce 0), phase_cluster (the cluster path's
+    bounce 1) and phase_bdiag: device ms and registers, and the outputs
+    equal to the sources' own shape's bit for bit (a ray's or a pair's
+    result does not depend on the shape). The brute force also at other
+    triangle blocks."""
     t = time.perf_counter()
-    built = build_shapes()
+    built = build_shapes(names)
     log(f"[shapes] {len(built)} shape builds in {time.perf_counter() - t:.1f} s")
-    walk_args, rounds_args = SHAPE_INPUTS["walk"], SHAPE_INPUTS["cluster_rounds"]
-    bdiag_args = SHAPE_INPUTS["pair_bdiag"]
     origin, d_live, v0, v1, v2, t_init = SHAPE_INPUTS["mxu_bf"]
 
     def brute(shape):
@@ -840,17 +1013,35 @@ def phase_shapes(own_logs: dict) -> None:
                                        ray_tile=shape[0] * shape[1])
         return hit.t, hit.tri
 
-    # each call returns its outputs as a tuple of tensors
+    def on(fn, key):
+        """fn on a recorded call's arguments, its outputs as a tuple."""
+        def call(shape):
+            out = fn(*SHAPE_INPUTS[key])
+            return out if isinstance(out, tuple) else (out,)
+        return call
+
+    # each kernel's timed calls, each returning its outputs as a tuple of tensors
     calls = {
-        "walk": (twalk, "WALK", lambda shape: twalk.walk(*walk_args)),
-        "cluster_rounds": (tcl, "ROUNDS", lambda shape: tcl.cluster_rounds(*rounds_args)),
-        "mxu_bf": (tmxu, "BF", brute),
-        "pair_bdiag": (tpairs, "PAIR_BDIAG", lambda shape: (tpairs.pair_bdiag(*bdiag_args),)),
+        "walk": (twalk, "WALK", {"walk path": on(twalk.walk, "walk")}),
+        "cluster_rounds": (tcl, "ROUNDS",
+                           {"cluster path": on(tcl.cluster_rounds, "cluster_rounds")}),
+        "mxu_bf": (tmxu, "BF", {"pair path, full bounce": brute}),
+        "pair_bdiag": (tpairs, "PAIR_BDIAG",
+                       {"pair_bdiag path": on(tpairs.pair_bdiag, "pair_bdiag")}),
+        "pair_runs": (tpairs, "PAIR_RUNS", {
+            label: on(tpairs.pair_runs, f"pair_runs {label}")
+            for label in ("pass 1", "pass 2", "bounce 0")}),
+        "pair_extract": (tpairs, "EXTRACT", {
+            **{label: on(tpairs.extract, f"pair_extract {label}") for label in ("pass 1", "pass 2")},
+            "pass 1 split form": lambda shape: tuple(
+                tpairs.extract(*SHAPE_INPUTS["pair_extract pass 1"][:4], True))}),
     }
     for name, shapes in SHAPES.items():
-        module, attr, call = calls[name]
+        if name not in names:
+            continue
+        module, attr, fns = calls[name]
         own = getattr(module, attr)
-        want = None
+        want = {}
         for shape in shapes:
             if shape == shapes[0]:
                 kernel, regs = own, ptxas_summary(own_logs.get(name, ""))
@@ -859,17 +1050,23 @@ def phase_shapes(own_logs: dict) -> None:
                 kernel = cuda_build.CudaKernel(own.source, own.symbol, own.argtypes[:-1])
                 with swapped(cuda_build, "BUILD_DIR", Path(build_dir)):
                     kernel._function()  # loads the shape's build
-            with swapped(module, attr, kernel):
-                got = call(shape)
-                ms = time_ms(lambda: call(shape), 3 if name == "mxu_bf" else 5)
-            sync(origin.device)
-            if want is None:
-                want = got
-            elif not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"[shapes] {name} {shape} differs from {shapes[0]}")
+            times = []
+            for label, call in fns.items():
+                with swapped(module, attr, kernel):
+                    got = call(shape)
+                    ms = time_ms(lambda: call(shape), 3 if name == "mxu_bf" else 5)
+                sync(origin.device)
+                if label not in want:
+                    want[label] = got
+                elif not all(torch.equal(a, b) for a, b in zip(got, want[label])):
+                    raise AssertionError(f"[shapes] {name} {shape} differs from {shapes[0]} on "
+                                         f"the {label} call")
+                times.append(f"{label} {ms:.4f} ms")
             consts = ", ".join(f"{c} {v}" for c, v in zip(SHAPE_CONSTANTS[name], shape))
-            log(f"[shapes] {name} {consts}: {ms:.3f} ms; registers (spill stores/loads) "
+            log(f"[shapes] {name} {consts}: {'; '.join(times)}; registers (spill stores/loads) "
                 f"{regs or 'not built here'}")
+    if "mxu_bf" not in names:
+        return
     own_tri = brute(SHAPES["mxu_bf"][0])[1]
     for block in BRUTE_TRI_BLOCKS:
         got = tmxu.intersect_brute_mxu(origin, d_live, v0, v1, v2, t_max=t_init,
@@ -1124,6 +1321,87 @@ def phase_cluster(scene, device) -> dict:
     return results
 
 
+def phase_launches(scene, device) -> None:
+    """Each launch of kernels 5 and 6 over one iteration of the pair path
+    (the default config, depth 8, 800x800) with its call site (bounce,
+    pass, round; rays and live rays, or pairs, real pairs and the blocks
+    they name) and its device time: CUDA events around the launch, a sleep
+    kernel queued ahead of it, so that the host's launch does not count;
+    after an iteration that is not timed. Keeps the arguments of bounce
+    0's heaviest pair_runs launch for [shapes]. Uses only the entry points
+    every tree of the port has, so that an earlier tree can be measured
+    with this script (``--launches``)."""
+    use_full_f32()
+    res = int(scene.camera.resolution[0])
+    step = make_render_block_fn(scene, RenderConfig(trace_depth=8, antialias=True), 1,
+                                device=device)
+    rows = []
+    site = dict(bounce=-1, pass_=1, round_=0)
+    kept = {}
+
+    def timed_launch(fn, args, kind, counts):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        out = fn(*args)
+        stop.record()
+        rows.append(dict(kind=kind, bounce=site["bounce"], pass_=site["pass_"],
+                         round_=site["round_"], events=(start, stop), counts=counts))
+        return out
+
+    def isect(*args, **kwargs):
+        site.update(bounce=site["bounce"] + 1, pass_=1, round_=0)
+        return real_isect(*args, **kwargs)
+
+    def extract(x, slab, blk, F, *rest, **kwargs):
+        if F == tpairs.F2:  # pass 2's rounds come after pass 1's
+            site.update(pass_=2, round_=site["round_"] if site["pass_"] == 2 else 0)
+        return timed_launch(lambda *a: real_extract(*a, **kwargs), (x, slab, blk, F, *rest),
+                            "pair_extract", (x.shape[0], (x[:, 7] > 0).sum()))
+
+    def pair_runs(blk_s, featp, cm, ptile, kreal):
+        real = blk_s < kreal
+        counts = (blk_s.shape[0], real.sum(), torch.unique(blk_s[real]).numel())
+        out = timed_launch(real_runs, (blk_s, featp, cm, ptile, kreal), "pair_runs", counts)
+        if site["bounce"] == 0:
+            kept[len(rows) - 1] = (blk_s.clone(), featp.clone(), cm, ptile, kreal)
+        site["round_"] += 1
+        return out
+
+    real_isect, real_extract, real_runs = (tint.intersect_mesh_pairs, tpairs.extract,
+                                           tpairs.pair_runs)
+    # a warm-up iteration first: a kernel's first launch in a process also
+    # loads its library and module
+    step(torch.zeros((res * res, 3), device=device), prng_key(0), 1)
+    with swapped(tint, "intersect_mesh_pairs", isect), swapped(tpairs, "extract", extract), \
+            swapped(tpairs, "pair_runs", pair_runs):
+        step(torch.zeros((res * res, 3), device=device), prng_key(0), 1)
+    sync(device)
+    totals = {"pair_extract": [0, 0.0], "pair_runs": [0, 0.0]}
+    heavy, heavy_ms = None, -1.0
+    for i, r in enumerate(rows):
+        ms = r["events"][0].elapsed_time(r["events"][1])
+        totals[r["kind"]][0] += 1
+        totals[r["kind"]][1] += ms
+        c = [int(v) for v in r["counts"]]
+        if r["kind"] == "pair_extract":
+            what = f"{c[0]} rays, {c[1]} live"
+        else:
+            what = f"{c[0]} pairs, {c[1]} real, {c[2]} blocks"
+            if i in kept and ms > heavy_ms:
+                heavy, heavy_ms = i, ms
+        log(f"[launches] bounce {r['bounce']} pass {r['pass_']} round {r['round_']} "
+            f"{r['kind']}: {what}: {ms:.4f} ms")
+    for kind, (count, ms) in totals.items():
+        log(f"[launches] {kind}: {count} launches, {ms:.3f} device ms in one iteration")
+    if heavy is None:
+        raise AssertionError("no pair_runs launch at bounce 0")
+    SHAPE_INPUTS["pair_runs bounce 0"] = kept[heavy]
+    log(f"[launches] bounce 0's heaviest pair_runs launch ({heavy_ms:.4f} ms) is kept for "
+        f"[shapes]")
+
+
 def phase_bdiag(scene, device) -> dict:
     """Kernel 7 on the pairs the pair_bdiag path hands it at its second
     bounce (1024-pair supertiles): bit for bit against kernel 6 on the
@@ -1184,16 +1462,12 @@ def phase_bdiag(scene, device) -> dict:
         raise AssertionError("pair_bdiag: a sentinel pair was not left at _PBIG")
     if loc_eq < 0.9999 or rel_max > 2.0 ** -12:
         raise AssertionError("pair_bdiag differs from its plain version beyond its tolerance")
-    used = torch.unique(blk_s[real].long())
-    blocks_used = int(used.numel())
-    nbytes = ((blk_s.numel() + featp.numel() + got.numel()) * 4
-              + int(cm.real[used].sum()) * TRI_BYTES)
-    pair_tests = int(cm.real[blk_s[real].long()].sum())
+    pbound, pair_tests, blocks_used = pair_bound(blk_s, cm, kreal)
     res = dict(
         max_abs_err=(tg - tw)[both].abs().max().item() if int(both.sum()) else 0.0,
         ms=time_ms(lambda: tpairs.pair_bdiag(blk_s, featp, cm, ptile, kreal), 20),
         plain_ms=time_ms(lambda: tpairs._pair_runs_ref(blk_s, featp, w, block, kreal), 3),
-        library_ms=None, **bound(nbytes, pair_tests * MT_OPS_PER_TEST),
+        library_ms=None, **pbound,
         shape=f"{blk_s.shape[0]} pairs ({n_real} real, {blocks_used} blocks) in supertiles of "
               f"{ptile}, blocks of {block} slots, {pair_tests} (real pair, real triangle) tests")
     k6_ms = time_ms(lambda: tpairs.pair_runs(blk_s, featp, cm, 256, kreal), 20)
@@ -1659,10 +1933,18 @@ def phase_gradcheck(device) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--shapes", action="store_true",
-                        help="also time kernels 2, 8, 10 and 7 in the other launch shapes "
-                             "of SHAPES")
+    parser.add_argument("--shapes", nargs="?", const=",".join(SHAPES), default="",
+                        help="also time kernels 2, 8, 10, 7, 6 and 5 (or those named, comma "
+                             "separated: " + ", ".join(SHAPES) + ") in the other launch "
+                             "shapes of SHAPES")
+    parser.add_argument("--launches", action="store_true",
+                        help="only build the kernels and time each launch of kernels 5 and 6 "
+                             "over one iteration of the pair path")
     args = parser.parse_args()
+    shape_names = [k for k in args.shapes.split(",") if k]
+    unknown = [k for k in shape_names if k not in SHAPES]
+    if unknown:
+        parser.error(f"--shapes: no launch shapes for {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1693,18 +1975,24 @@ def main() -> int:
         log(f"[time] {name} done at {time.perf_counter() - start:.1f} s")
 
     scene = mesh_scene(6, 2.5, 800, device)
+    if args.launches:
+        phase_launches(scene, device)
+        log(f"[card] {card}")
+        return 0
     walk_config = RenderConfig(trace_depth=8, antialias=True, **WALK)
     results = phase_kernels(scene, walk_config, device)
     phase_done("kernels")
     pair_results, _ = phase_pairs(scene, device)
     results.update(pair_results)
     phase_done("pairs")
+    phase_launches(scene, device)
+    phase_done("launches")
     results["pair_bdiag"] = phase_bdiag(scene, device)
     phase_done("bdiag")
     results.update(phase_cluster(scene, device))
     phase_done("cluster")
-    if args.shapes:
-        phase_shapes(logs)
+    if shape_names:
+        phase_shapes(logs, shape_names)
         phase_done("shapes")
     SHAPE_INPUTS.clear()  # the main paths' peak memory must not count these
     phase_goldens(device)
@@ -1776,7 +2064,8 @@ def main() -> int:
              launches=paths[record_path[name]][name],
              **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")},
-             **{k: results[name][k] for k in SWEEP_EXTRA + BRUTE_EXTRA if k in results[name]})
+             **{k: results[name][k] for k in SWEEP_EXTRA + BRUTE_EXTRA + PAIR_EXTRA
+                if k in results[name]})
         for name, _, source, replaces in KERNELS
     ]}
     log(f"[card] {card}")

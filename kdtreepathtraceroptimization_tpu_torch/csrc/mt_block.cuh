@@ -1,12 +1,12 @@
-// One block of triangles' Moller-Trumbore weights in shared memory, and
-// the test of one ray against one staged triangle.
+// A block of triangles' Moller-Trumbore weights, and the test of one ray
+// against one staged triangle.
 //
-// The dense form (stage_block, load_tri, accept) is used by pair_runs.cu
-// (kernel 6) and, load_tri and accept only, cluster_sweep.cu (kernel 11);
-// the sparse form (sparse_run, load_sparse, sparse_accept) by mxu_bf.cu and
-// round_walk.cuh, whose round loop walk.cu and cluster_rounds.cu run and
-// whose staging pair_bdiag.cu shares; the cp.async helpers by all of these
-// but pair_runs.cu.
+// The dense form (load_tri, accept) is used by cluster_sweep.cu (kernel 11)
+// alone, which stages its rows itself; the sparse form (sparse_run,
+// load_sparse, sparse_accept) by mxu_bf.cu (kernel 8), round_walk.cuh,
+// whose round loop walk.cu and cluster_rounds.cu run (kernels 2 and 10),
+// and pair_part.cuh, whose part loop pair_runs.cu and pair_bdiag.cu run
+// (kernels 6 and 7); the cp.async helpers by all of these.
 //
 // A weight block is the cluster table's [16, 4B] layout (ops/cluster.py,
 // ops/mxu_bf.py): for triangle j, column j holds a's weights, column B + j
@@ -37,31 +37,11 @@ constexpr float kCullEps = 1.19e-7f;   // ops/mxu_bf.py _CULL_EPS
 constexpr int kFeat = 10;              // non-zero feature rows of r and w
 constexpr int kTriFloats = 4 * kFeat;  // one staged triangle: a | t | u | v
 
-// Shared memory the staged block of `block` triangles takes (bytes).
-inline int staged_bytes(int block) { return kTriFloats * block * (int)sizeof(float); }
-
 // Raise a kernel's dynamic shared memory limit when it needs more than
 // the 48 KB every kernel may use.
 inline cudaError_t allow_smem(const void* kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// Copy rows 0-9 of the weight block at `wk` into `sw`, transposed so that
-// triangle j's 40 weights are sw[40 j .. 40 j + 39]: ten float4 loads
-// when it is tested. Every thread of the thread block takes part; the
-// caller synchronises before and after.
-__device__ __forceinline__ void stage_block(float* sw, const float* __restrict__ wk,
-                                            int block) {
-  const int cols = 4 * block;
-  const int nt = blockDim.x;  // a signed stride: the unsigned one compiled slower
-  for (int e = threadIdx.x; e < kFeat * cols; e += nt) {
-    const int f = e / cols;
-    const int c = e - f * cols;
-    const int q = c / block;
-    const int j = c - q * block;
-    sw[j * kTriFloats + q * kFeat + f] = wk[e];
-  }
 }
 
 // Staged triangle j's weights into registers (all threads read the same

@@ -5,88 +5,80 @@
 // Replaces the TPU kernel `_pair_runs_kernel` (launcher `_pair_runs_pallas`)
 // in kdtreepathtraceroptimization_tpu/ops/pairs.py. Plain version:
 // `_pair_runs_ref` in kdtreepathtraceroptimization_tpu_torch/ops/pairs.py.
+// The function, its precondition (the table's zero pattern and real slots)
+// and the part loop are pair_part.cuh's, which kernel 7 (pair_bdiag.cu)
+// runs too: on the same pairs the two give the same keys bit for bit. The
+// JAX package has two kernels because its matrix unit wants short runs
+// packed into one 128-deep product; on this card both come to the part loop.
 //
-// Pair p has block id blk_s[p] (ascending, so sentinel ids >= kreal come
-// last) and the ray's _feat16t record feat[p] ([o, d, o x d, 1] and its
-// bound t0 in column 10). For a real block b the result is the minimum
-// over the block's triangles j of _pack_tl(t_j, j) = (bits(t_j) & ~1023)
-// | j, with t_j the hit's t when the ray hits triangle j below t0 and BIG
-// otherwise; so _PBIG when nothing is hit, and the pair's packed key
-// orders as its nearest t, ties (within the 2^-13 truncation) going to the
-// smaller j, as the TPU kernel packs before its min. Pairs from the first
-// sentinel run on keep _PBIG.
-//
-// Bound on this card: operations. Each (pair, triangle) test is 40 FMAs
-// and ~10 more f32 operations, against 64 bytes read and 4 written per
-// pair and weights (40 KB per block at B = 256) that stay in L2.
-// Design: one thread block per tile of ptile pairs, one thread per pair.
-// The block walks the tile's runs in order: __syncthreads_count gives the
-// run's end (the pairs of block b from r0 on; a run that goes on into the
-// next tile is cut at the tile's end and finished there), the block's
-// weights are staged in shared memory (mt::stage_block), and the run's
-// threads test every triangle, all reading the same one at once (a
-// broadcast). Runs per tile are few when pairs per block exceed the tile.
-// The loop ends at the first sentinel run or the tile's end. Staging is
-// not overlapped with compute (cp.async / TMA double buffering is left for
-// later).
+// Bound on this card: operations. Each (real pair, real triangle) test is
+// 19 FMAs and 8 more f32 operations, against 64 bytes read and 4 written a
+// pair and the 16 weights of each real triangle of a block some pair
+// names.
+// What held the first version of this kernel back, and what the part loop
+// does about it:
+//   - it ran the dense test (40 FMAs) on all `block` slots; the part loop
+//     runs the sparse test (19) on the block's real slots only (160 of 256
+//     on the icosphere-6 table);
+//   - it staged the dense block between two barriers with nothing in
+//     flight; the part loop copies the real slots' sparse runs by cp.async,
+//     the next round's while this one tests;
+//   - it took one run at a time while the tile's other threads waited; a
+//     round of the part loop stages up to `slots` runs, and all their pairs
+//     test at once;
+//   - a part of many short runs (pass 2: a few thousand real pairs over
+//     most of the 512 blocks) would take its rounds one after another, on
+//     the few SMs that hold such parts; above kDirectRounds rounds the part
+//     stages nothing and each pair reads its block's weights through the
+//     cache (pair_part.cuh).
+// Launch shape: one thread per pair, a tile of ptile pairs (pair_tile, 256
+// on the default path) in parts of kThreads pairs, kMinBlocks thread blocks
+// an SM, which set the slots (pair_runs_slots), and kDirectRounds: 256, 3
+// and 2, the fastest of those chip_smoke.py --shapes times on the pair
+// path's pass-1 and pass-2 calls and bounce 0's heaviest launch (0.070,
+// 0.055 and 0.108 ms; without the direct form 0.069, 0.133 and 0.289;
+// 256, 4: 0.089, 0.042, 0.074; H100 80GB HBM3, 700 W).
 
-#include "mt_block.cuh"
+#include "pair_part.cuh"
 
 namespace {
 
-constexpr int kLocMask = (1 << 10) - 1;
+constexpr int kThreads = 256;   // pairs (threads) a thread block
+constexpr int kMinBlocks = 3;   // thread blocks an SM must hold
+constexpr int kDirectRounds = 2;  // rounds above which a part reads weights directly (0: never)
 
-__global__ void pair_runs_kernel(const int* __restrict__ blk_s,
-                                 const float* __restrict__ feat,
-                                 const float* __restrict__ w, int* __restrict__ out,
-                                 int block, int kreal) {
-  extern __shared__ float4 sw4[];
-  float* sw = reinterpret_cast<float*>(sw4);
-  const int ptile = blockDim.x;
-  const int me = threadIdx.x;
-  const size_t row = (size_t)blockIdx.x * ptile + me;
-  const int* tile_blk = blk_s + (size_t)blockIdx.x * ptile;
-  const int mine = blk_s[row];
-
-  float rf[mt::kFeat];
-#pragma unroll
-  for (int f = 0; f < mt::kFeat; ++f) rf[f] = feat[row * 16 + f];
-  const float t0 = feat[row * 16 + 10];
-
-  const int pbig = __float_as_int(mt::kBig) & ~kLocMask;
-  int best = pbig;
-  for (int r0 = 0; r0 < ptile;) {
-    const int b = tile_blk[r0];  // the same for every thread
-    if (b >= kreal) break;      // the first sentinel run: the rest are too
-    // Also the barrier before sw is written again.
-    const int r1 = r0 + __syncthreads_count(me >= r0 && mine == b);
-    mt::stage_block(sw, w + (size_t)b * 16 * 4 * block, block);
-    __syncthreads();
-    if (me >= r0 && me < r1) {
-      for (int j = 0; j < block; ++j) {
-        float wj[mt::kTriFloats];
-        mt::load_tri(sw4, j, wj);
-        float a, tn;
-        if (mt::accept(rf, wj, a, tn)) {
-          const float t = __fdiv_rn(tn, a);
-          if (t < t0) best = min(best, (__float_as_int(t) & ~kLocMask) | j);
-        }
-      }
-    }
-    r0 = r1;
-  }
-  out[row] = best;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    pair_runs_kernel(const int* __restrict__ blk_s, const float* __restrict__ feat,
+                     const float* __restrict__ w, const int* __restrict__ real,
+                     int* __restrict__ out, int ptile, int parts, int block, int kreal,
+                     int slots) {
+  extern __shared__ float4 smem4[];
+  __shared__ int run_blk[kThreads];  // block id of each run of the part
+  __shared__ int warp_sum[kThreads / 32];
+  pp::part<kThreads, kDirectRounds>(blk_s, feat, w, real, out, ptile, parts, block, kreal,
+                                     slots, smem4, run_blk, warp_sum);
 }
 
 }  // namespace
 
-extern "C" int pair_runs(const int* blk_s, const float* feat, const float* w,
-                         int* out, int p, int ptile, int block, int kreal,
+// Weight slots one round stages for blocks of `block` triangles
+// (pp::slots: room for kMinBlocks thread blocks an SM, at most 8).
+extern "C" int pair_runs_slots(int block, int max_smem) {
+  return pp::slots<kThreads, kMinBlocks>(block, max_smem);
+}
+
+// blk_s [p] (ascending), feat [p, 16], w [kp, 16, 4 block], real [kp];
+// out [p]: p pairs in tiles of ptile, slots from pair_runs_slots.
+extern "C" int pair_runs(const int* blk_s, const float* feat, const float* w, const int* real,
+                         int* out, int p, int ptile, int block, int kreal, int slots,
                          cudaStream_t stream) {
-  const int smem = mt::staged_bytes(block);
+  if (ptile <= 0 || p % ptile || slots < 1) return (int)cudaErrorInvalidValue;
+  const int smem = slots * rw::staged_bytes(block);
   cudaError_t err = mt::allow_smem((const void*)pair_runs_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  pair_runs_kernel<<<p / ptile, ptile, smem, stream>>>(blk_s, feat, w, out, block, kreal);
+  const int parts = (ptile + kThreads - 1) / kThreads;
+  pair_runs_kernel<<<(p / ptile) * parts, kThreads, smem, stream>>>(
+      blk_s, feat, w, real, out, ptile, parts, block, kreal, slots);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // The round loop of the walk (kernel 2, walk.cu) and of the cluster rounds
 // (kernel 10, cluster_rounds.cu), and the staging of a block's sparse
-// weights, which the pair test on supertiles (kernel 7, pair_bdiag.cu)
-// shares.
+// weights, which the pair tests' part loop (pair_part.cuh: kernels 6 and
+// 7) shares.
 //
 // The rounds are the walk with a budget: both walk, per ray tile, a list of
 // entry-ordered blocks (sel, with entry bounds lb ascending) keeping each

@@ -47,9 +47,8 @@ from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, Cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-EXTRACT = CudaKernel("pair_extract", "pair_extract",
-                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I])
-PAIR_RUNS = CudaKernel("pair_runs", "pair_runs", [_P, _P, _P, _P, _I, _I, _I, _I])
+EXTRACT = CudaKernel("pair_extract", "pair_extract", [_P] * 7 + [_I] * 4)
+PAIR_RUNS = CudaKernel("pair_runs", "pair_runs", [_P] * 5 + [_I] * 5)
 PAIR_BDIAG = CudaKernel("pair_bdiag", "pair_bdiag", [_P] * 5 + [_I] * 5)
 
 # Second-pass window depth and the pass-2 / pass-3 buffer sizes (the JAX
@@ -140,9 +139,67 @@ def _extract_ref(x, slab, blk, F: int):
     return ids, lbov.reshape(-1), cnt, _feat16t(x[:, :8])
 
 
-def extract(x, slab, blk, F: int):
+def _group_slab(slab, blk, G: int):
+    """The union boxes the extraction kernel builds over each aligned group
+    of G blocks -> [8, ceil(kp / G)] rows lo_xyz hi_xyz, 1 where the group
+    has a real member (blk row 5 >= 0) and -1 where it has none, 0. A box
+    holds each real member's lo and hi on every axis; a ragged last group
+    takes the blocks there are. The plain form of the kernel's groups,
+    for the tests and chip_smoke.py: the main path does not call it."""
+    kp = slab.shape[1]
+    ng = -(-kp // G)
+    real = blk[5] >= 0.0
+    lo = torch.where(real, torch.minimum(slab[0:3], slab[3:6]), BIG)
+    hi = torch.where(real, torch.maximum(slab[0:3], slab[3:6]), -BIG)
+    pad = ng * G - kp
+    if pad:
+        lo = torch.cat([lo, lo.new_full((3, pad), BIG)], dim=1)
+        hi = torch.cat([hi, hi.new_full((3, pad), -BIG)], dim=1)
+        real = torch.cat([real, real.new_zeros((pad,))])
+    out = torch.zeros((8, ng), dtype=torch.float32, device=slab.device)
+    out[0:3] = lo.reshape(3, ng, G).amin(dim=2)
+    out[3:6] = hi.reshape(3, ng, G).amax(dim=2)
+    out[6] = torch.where(real.reshape(ng, G).any(dim=1), 1.0, -1.0)
+    return out
+
+
+def _group_entry(x, gslab):
+    """[n, 16] _ray16 records x [8, ng] group boxes (``_group_slab``) ->
+    [n, ng]: where the extraction kernel's group test passes, the group's
+    widened entry, else BIG. The kernel runs a group's member tests for a
+    ray only where this is below BIG (for some ray of the warp). Its
+    widening S = slack(max(|tmin|, |tmax| * 1.00001 + 1e-4)) bounds the
+    slack of every member the exact test can pass (csrc/pair_extract.cu
+    has the argument), so every block with a finite ``_slab_entry_math``
+    entry lies in a group with a finite entry here. The same float32
+    operations as the kernel's, unfused."""
+    t0 = x[:, 6:7]
+    act = x[:, 7:8] > 0.0
+    shape = (x.shape[0], gslab.shape[1])
+    tmin = torch.full(shape, -BIG, dtype=torch.float32, device=x.device)
+    tmax = torch.full(shape, BIG, dtype=torch.float32, device=x.device)
+    for a in range(3):
+        invd = x[:, 8 + a:9 + a]
+        oinv = x[:, 11 + a:12 + a]
+        tlo = gslab[a:a + 1, :] * invd - oinv
+        thi = gslab[3 + a:4 + a, :] * invd - oinv
+        tmin = torch.maximum(tmin, torch.minimum(tlo, thi))
+        tmax = torch.minimum(tmax, torch.maximum(tlo, thi))
+    bnd = torch.maximum(torch.abs(tmin), torch.abs(tmax) * 1.00001 + 1e-4)
+    s = 1e-6 * bnd + 1e-5
+    t_in = torch.clamp_min(tmin - s, 0.0)
+    t_out = tmax + s
+    ok = (t_out >= t_in) & (t_out > 0.0) & (t_in < t0) & act & (gslab[6:7, :] > 0.0)
+    return torch.where(ok, t_in, BIG)
+
+
+def extract(x, slab, blk, F: int, split: bool = False):
     """Per ray: its F nearest-entry feasible blocks and the rest of the
-    extraction record (kernel 5; ``_extract_ref`` has the layout)."""
+    extraction record (kernel 5; ``_extract_ref`` has the layout). With
+    ``split`` (for calls whose live rays are few and come first, as pass
+    2's) the kernel takes each ray with several lanes, each a share of the
+    blocks; the results are the same. Pass 1's calls, most of whose rays
+    are live, run faster without it (csrc/pair_extract.cu has the times)."""
     kp = blk.shape[1]
     if kp > MAX_CLUSTER_BLOCKS:
         raise ValueError(f"{kp} cluster blocks exceed the {MAX_CLUSTER_BLOCKS}-block cap")
@@ -166,7 +223,7 @@ def extract(x, slab, blk, F: int):
     if n:
         EXTRACT.launch(device, x.data_ptr(), slab.data_ptr(), blk.data_ptr(),
                        ids.data_ptr(), lbov.data_ptr(), cnt.data_ptr(),
-                       feat.data_ptr(), n, kp, F)
+                       feat.data_ptr(), n, kp, F, int(split))
     return ids, lbov, cnt, feat
 
 
@@ -214,8 +271,12 @@ def pair_runs(blk_s, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int):
     (>= kreal) come last; feat [P, 16]: each pair's _feat16t record (its
     bound t0 in column 10); ``cm``: the cluster table, whose weight blocks
     ``cm.w`` [kp, 16, 4B] the kernel reads. P must be a multiple of
-    ``ptile``, the pairs one thread block takes. The signature is
-    ``pair_bdiag``'s."""
+    ``ptile`` (at most 1024), the pairs of one tile, which thread blocks
+    take in parts. The kernel stages only each block's real slots
+    (``cm.real``) and runs the sparse test on them, which rests on the
+    table's zero pattern (``mxu_bf.check_sparse_pattern``); it runs kernel
+    7's part loop (``csrc/pair_part.cuh``), so the two give the same keys
+    on the same pairs. The signature is ``pair_bdiag``'s."""
     w, block = cm.w, cm.block
     if feat.device.type == "cpu":
         return _pair_runs_ref(blk_s, feat, w, block, kreal)
@@ -224,16 +285,20 @@ def pair_runs(blk_s, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int):
     device = feat.device
     p = blk_s.shape[0]
     kp = w.shape[0]
-    if (p % ptile or not 0 < ptile <= 1024 or block > 1 << _LOC_BITS
-            or 40 * block * 4 > MAX_SMEM):
+    if p % ptile or not 0 < ptile <= 1024 or block > 1 << _LOC_BITS:
         raise ValueError(f"pair_runs: bad tile {ptile} / block {block} for {p} pairs")
+    slots = PAIR_RUNS.call_int("pair_runs_slots", block, MAX_SMEM)
+    if slots < 1:
+        raise ValueError(f"pair_runs: a block of {block} triangles does not fit in shared memory")
     check_tensor(blk_s, "blk_s", torch.int32, (p,), device)
     check_tensor(feat, "feat", torch.float32, (p, 16), device)
     check_tensor(w, "w", torch.float32, (kp, 16, 4 * block), device)
+    check_tensor(cm.real, "real", torch.int32, (kp,), device)
     out = torch.empty((p,), dtype=torch.int32, device=device)
     if p:
         PAIR_RUNS.launch(device, blk_s.data_ptr(), feat.data_ptr(), w.data_ptr(),
-                         out.data_ptr(), p, ptile, block, min(kreal, kp))
+                         cm.real.data_ptr(), out.data_ptr(), p, ptile, block, min(kreal, kp),
+                         slots)
     return out
 
 
@@ -442,7 +507,7 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
             x2 = _take_rows(x, pos)
             x2[:, 7] *= livef
             x2[:, 3:6] *= livef[:, None]
-            ids2, lbov2, cnt2, ft2 = extract(x2, cm.slab, cm.blk, F2)
+            ids2, lbov2, cnt2, ft2 = extract(x2, cm.slab, cm.blk, F2, split=True)
             bt2g = torch.where(live, _take_rows(bt, pos), 0.0)
             ft2[:, 10] = bt2g  # the window's bound: the current best
             t2, tri2 = _pair_pass(ids2[:, F:], ft2, cm, ptile, kreal, bdiag)

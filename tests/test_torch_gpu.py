@@ -9,8 +9,11 @@ needs more than 48 KB of shared memory, 8- to 1024-triangle blocks,
 blocks whose weight runs are not 16-byte aligned, tiles with empty
 feasible lists or only dead rays, walk tiles of several thread blocks,
 tiles whose rays finish in the first round, 1 to 16 pair slots, block
-tables of 1024 to 8192 blocks, pair tiles that are all sentinel or split
-a run, pair supertiles of more runs than kernel 7 stages a round,
+tables of 1024 to 8192 blocks (and of 301, whose last extraction group
+is ragged, or with sentinel blocks among real ones), extraction calls of
+pass 2's form (65,536 lanes, a live prefix) or all dead, pair tiles that
+are all sentinel or split a run or are not a multiple of 32 pairs, pair
+tiles and supertiles of more runs than kernels 6 and 7 stage a round,
 triangle counts that are not a multiple of the brute force's block, rays
 with d = 0 among the brute force's, as many rounds as blocks, a single
 tile, gathers of n not a multiple of 4 or under one thread block, the
@@ -270,20 +273,49 @@ def _pair_inputs(cm, n, seed):
     return x
 
 
-@pytest.mark.parametrize("subdiv, block, F", [
-    (4, 64, 1), (4, 64, 3), (5, 8, 12), (5, 8, 16), (6, 10, 3),
+@pytest.mark.parametrize("subdiv, block, F, form", [
+    (4, 64, 1, "random"), (4, 64, 3, "random"), (5, 8, 12, "random"), (5, 8, 16, "random"),
+    (6, 10, 3, "random"),
+    (5, 64, 12, "pass 2"),  # 65,536 lanes, the live rays a compacted prefix
+    (4, 64, 3, "dead"),  # every ray dead: every thread block skips
+    (5, 64, 3, "ragged"),  # kp = 301: not a multiple of any group size
+    (4, 64, 3, "sentinels"),  # sentinel blocks inside groups
 ])
-def test_extract_kernel_bit_equal(cuda, subdiv, block, F):
-    """kp from 128 to 8192 (icosphere-6 in 10-triangle leaves: the cap)."""
+def test_extract_kernel_bit_equal(cuda, subdiv, block, F, form):
+    """Both forms of the kernel (a ray a lane, and the split form's several
+    lanes a ray) on kp from 128 to 8192 (icosphere-6 in 10-triangle
+    leaves: the cap); pass 2's form (65,536 lanes whose 3,000 live rays
+    come first, as _compact_all leaves them); all-dead input; a table of
+    301 blocks (the kernel's last group is ragged); sentinel blocks (r2 <
+    0) among the real ones of a group."""
     cm = build_cluster_mesh(_mesh(subdiv), block=block, device=cuda)
-    x = _pair_inputs(cm, 8192, seed=F)
+    slab, blk = cm.slab, cm.blk
+    if form == "pass 2":  # the live rays first, as intersect_mesh_pairs compacts them
+        x = _pair_inputs(cm, 65536, seed=F)
+        x = x[torch.argsort((x[:, 7] <= 0).int(), stable=True)].contiguous()
+        x[3000:, 7] = 0.0
+        x[3000:, 3:6] = 0.0
+        assert bool((x[:3000, 7] > 0).all())
+    else:
+        x = _pair_inputs(cm, 8192, seed=F)
+    if form == "dead":
+        x[:, 7] = 0.0
+    if form == "ragged":
+        slab, blk = slab[:, :301].contiguous(), blk[:, :301].contiguous()
+    if form == "sentinels":
+        blk = blk.clone()
+        blk[5, 3:cm.n_real_blocks:5] = -1.0
     before = tpairs.EXTRACT.launches
-    got = tpairs.extract(x, cm.slab, cm.blk, F)
-    want = tpairs._extract_ref(x, cm.slab, cm.blk, F)
-    assert tpairs.EXTRACT.launches == before + 1
-    assert int((want[2] > F).sum()) > 0 or F == 16
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    got = [tpairs.extract(x, slab, blk, F, split) for split in (False, True)]
+    want = tpairs._extract_ref(x, slab, blk, F)
+    assert tpairs.EXTRACT.launches == before + 2
+    if form == "dead":
+        assert int(want[2].sum()) == 0 and bool((want[0] == slab.shape[1]).all())
+    else:
+        assert int((want[2] > F).sum()) > 0 or F == 16
+    for form_got in got:  # the one-lane and the split form
+        for a, b in zip(form_got, want):
+            assert torch.equal(a, b)
     if subdiv == 6:
         assert cm.n_blocks == tpairs.MAX_CLUSTER_BLOCKS
 
@@ -300,26 +332,68 @@ def _check_packed(got, want, blk_s, kreal):
     assert ((tg < 1e30) == (tw < 1e30))[real].float().mean().item() >= 0.999
 
 
-@pytest.mark.parametrize("block, ptile", [(64, 256), (256, 256), (1024, 128)])
-def test_pair_runs_kernel_matches_plain(cuda, block, ptile):
-    """Block-sorted pairs from a real extraction: runs that split tiles,
-    and a tail of whole tiles that are all sentinel."""
+def _k7_on(blk_s, featp, cm):
+    """Kernel 7 on the same pairs, padded with sentinels to its 1024-pair
+    supertiles; its keys for the given pairs."""
+    p = blk_s.shape[0]
+    pad = -p % 1024
+    bp = torch.cat([blk_s, torch.full((pad,), cm.n_blocks, dtype=torch.int32,
+                                      device=blk_s.device)])
+    fp = torch.cat([featp, featp.new_zeros((pad, 16))])
+    return tpairs.pair_bdiag(bp, fp, cm, 1024, cm.n_real_blocks)[:p]
+
+
+@pytest.mark.parametrize("block, ptile, runs", [
+    (64, 256, None), (256, 256, None), (1024, 128, None),
+    (64, 200, None),  # tiles that are not a multiple of 32 pairs
+    (64, 256, [12, 9, 14]),  # parts of more runs than slots: two staged rounds
+    (64, 256, [20, 40, 1]),  # parts of more runs than two rounds stage: read directly
+    (256, 256, [1, 1, 1]),  # one-run tiles
+    (9, 256, [2, 5, 30]),  # blocks of 9 triangles: runs not 16-byte aligned
+])
+def test_pair_runs_kernel_matches_plain(cuda, block, ptile, runs):
+    """Block-sorted pairs from a real extraction (runs that split tiles,
+    and a tail of whole tiles that are all sentinel), or tiles of given
+    runs (``_many_run_pairs``: parts of more runs than kernel 6 stages a
+    round, which take two staged rounds, and of more than two rounds'
+    runs, which read their weights directly; one-run tiles; 9-triangle
+    blocks), on padded tables (real < block): against the plain version,
+    and against kernel 7 on the same pairs bit for bit (both run the part
+    loop of csrc/pair_part.cuh)."""
     cm = build_cluster_mesh(_mesh(5), block=block, device=cuda)
-    x = _pair_inputs(cm, 4096, seed=block)
-    ids, _, _, feat = tpairs.extract(x, cm.slab, cm.blk, 3)
-    flat = torch.cat([ids.reshape(-1), torch.full((4 * ptile,), cm.n_blocks,
-                                                  dtype=torch.int32, device=cuda)])
-    blk_s, src = torch.sort(flat, stable=True)
-    featp = feat[torch.clamp_max(src // 3, 4095)]
+    assert (cm.real[:cm.n_real_blocks] < block).any()
+    if runs is None:
+        x = _pair_inputs(cm, 4096, seed=block)
+        ids, _, _, feat = tpairs.extract(x, cm.slab, cm.blk, 3)
+        flat = torch.cat([ids.reshape(-1),
+                          torch.full((-(4096 * 3) % ptile + 4 * ptile,), cm.n_blocks,
+                                     dtype=torch.int32, device=cuda)])
+        blk_s, src = torch.sort(flat, stable=True)
+        featp = feat[torch.clamp_max(src // 3, 4095)]
+    else:
+        blk_s, featp = _many_run_pairs(cm, ptile, runs, seed=block + len(runs))
+    slots = tpairs.PAIR_RUNS.call_int("pair_runs_slots", block, cuda_build.MAX_SMEM)
+    assert slots >= 1
+    tiles = blk_s.reshape(-1, ptile)
+    if runs is not None:  # the given tiles, before the half- and all-sentinel ones
+        starts = torch.ones_like(tiles[:len(runs)], dtype=torch.bool)
+        starts[:, 1:] = tiles[:len(runs), 1:] != tiles[:len(runs), :-1]
+        per_tile = starts.sum(dim=1)
+        if runs == [12, 9, 14]:
+            assert slots < int(per_tile.min()) and int(per_tile.max()) <= 2 * slots
+        if runs == [20, 40, 1]:
+            assert int(per_tile.max()) > 2 * slots
+        if runs == [1, 1, 1]:
+            assert bool((per_tile == 1).all())
     before = tpairs.PAIR_RUNS.launches
     got = tpairs.pair_runs(blk_s, featp, cm, ptile, cm.n_real_blocks)
     want = tpairs._pair_runs_ref(blk_s, featp, cm.w, block, cm.n_real_blocks)
     assert tpairs.PAIR_RUNS.launches == before + 1
-    tiles = blk_s.reshape(-1, ptile)
     # a run that goes on from one tile into the next
     assert bool(((tiles[1:, 0] == tiles[:-1, -1]) & (tiles[1:, 0] < cm.n_real_blocks)).any())
     assert bool((tiles[:, 0] >= cm.n_real_blocks).any())
     _check_packed(got, want, blk_s, cm.n_real_blocks)
+    assert torch.equal(got, _k7_on(blk_s, featp, cm))
 
 
 def _many_run_pairs(cm, ptile, runs_per_tile, seed):
@@ -513,6 +587,11 @@ def test_new_wrappers_check_their_arguments(cuda):
         tpairs.pair_runs(blk_s, feat, cm, 384, cm.n_real_blocks)
     with pytest.raises(ValueError):
         tpairs.pair_runs(blk_s.long(), feat, cm, 256, cm.n_real_blocks)
+    with pytest.raises(ValueError):  # a real-slot count short of the table
+        tpairs.pair_runs(blk_s, feat, cm._replace(real=cm.real[:-1].contiguous()), 256,
+                         cm.n_real_blocks)
+    with pytest.raises(ValueError):
+        tpairs.pair_runs(blk_s, feat, cm._replace(real=cm.real.long()), 256, cm.n_real_blocks)
     v = cm.tris.v0
     with pytest.raises(ValueError):  # 81-ray tiles: not a whole number of threads
         mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, ray_tile=81)

@@ -33,6 +33,7 @@ from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig as TCfg
 from kdtreepathtraceroptimization_tpu_torch.convert import scene_from_numpy
 from kdtreepathtraceroptimization_tpu_torch.ops import intersect as tisect
 from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
+from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mesh as tbuild
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import mesh_route, render
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
@@ -118,6 +119,141 @@ def test_extract_matches_pallas_interpret_through_fused_entries():
     ids_t, _, cnt_t, feat_t = tpairs.extract(_t(x), tcm.slab, tcm.blk, F)
     assert (np.asarray(ids_i) == ids_t.numpy()).mean() >= 0.99
     np.testing.assert_allclose(np.asarray(feat_i), feat_t.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _face_rays(slab, blk):
+    """Axis-parallel rays whose origins lie on a face of a real block's box
+    (the face's centre), moving along one of the face's two axes, both
+    ways: the slab cull's hazard (a ray with d_a = 0 whose o_a lies on a
+    box face; the camera of the Cornell scenes sits on the icosphere's
+    split plane x = 0), as _ray16 records with t0 = 30."""
+    lo, hi = slab[0:3].T, slab[3:6].T
+    real = blk[5] >= 0.0
+    lo, hi = lo[real], hi[real]
+    cen = 0.5 * (lo + hi)
+    o, d = [], []
+    for a in range(3):
+        for face in (lo, hi):
+            for b in range(3):
+                if b == a:
+                    continue
+                for sign in (1.0, -1.0):
+                    oa = cen.clone()
+                    oa[:, a] = face[:, a]
+                    da = torch.zeros_like(oa)
+                    da[:, b] = sign
+                    o.append(oa)
+                    d.append(da)
+    o, d = torch.cat(o), torch.cat(d)
+    n = o.shape[0]
+    return twalk._ray16(o, d, torch.full((n,), 30.0), torch.ones((n,)))
+
+
+@pytest.mark.parametrize("G", [4, 8, 16])
+def test_extract_group_premise_on_its_own_inputs(tmp_path, monkeypatch, G):
+    """The extraction kernel runs a group's member tests for a warp only
+    if the group test (``_group_entry`` on ``_group_slab``'s union boxes)
+    passes for one of its rays. That is exact if every block the exact
+    test passes (a finite ``_slab_entry_math`` entry) lies in a group
+    whose group test passes for the same ray. Checked on every ``extract``
+    call of a depth-2 render of icosphere-3 in the Cornell box (32x32, so
+    1,024 rays a bounce, passes 1 and 2; 64-slot blocks: 20 real blocks
+    and 108 sentinels, so the groups hold sentinel members and some none),
+    the default config, and on axis-parallel rays from block faces."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5), cluster_block=64,
+                           device="cpu"), 32, 32)
+    assert mesh_route(scene.mesh, scene.cmesh, TCfg()) == "pairs"
+    calls = []
+    real_extract = tpairs.extract
+
+    def record(*args, **kwargs):
+        calls.append(args)
+        return real_extract(*args, **kwargs)
+
+    monkeypatch.setattr(tpairs, "extract", record)
+    render(scene, TCfg(trace_depth=2), spp=2, seed=0, device="cpu")
+    assert len(calls) == 8 and {c[3] for c in calls} == {TCfg().pair_slots, tpairs.F2}
+    slab, blk = calls[0][1], calls[0][2]
+    calls.append((_face_rays(slab, blk), slab, blk, 3))
+    kp = blk.shape[1]
+    group_of = torch.arange(kp) // G
+    feasible_faces = culled = 0
+    for x, slab, blk, _ in calls:
+        gslab = tpairs._group_slab(slab, blk, G)
+        feasible = twalk._slab_entry_math(x, slab, blk, kp) < 1e30
+        meets = tpairs._group_entry(x, gslab) < 1e30
+        assert not (feasible & ~meets[:, group_of]).any()
+        live = x[:, 7] > 0
+        culled += int((live[:, None] & (gslab[6] > 0)[None] & ~meets).sum())
+        feasible_faces = int(feasible.sum())  # the last call's: the face rays
+    assert feasible_faces > 100 and culled > 0
+
+
+def test_group_slab_is_the_union_of_real_members():
+    """``_group_slab`` against a numpy union over a 37-block table in
+    groups of 8: a ragged last group (5 blocks), an all-sentinel (empty)
+    group, sentinel members among real ones, and boxes whose lo exceeds
+    hi on an axis (the union holds both ends)."""
+    rng = np.random.default_rng(5)
+    kp, G = 37, 8
+    lo = rng.normal(size=(3, kp)).astype(np.float32)
+    hi = lo + rng.uniform(0.0, 2.0, (3, kp)).astype(np.float32)
+    hi[1, 3] = lo[1, 3] - 0.5  # an inverted axis
+    slab = np.zeros((8, kp), np.float32)
+    slab[0:3], slab[3:6] = lo, hi
+    r2 = np.ones(kp, np.float32)
+    r2[8:16] = -1.0  # group 1: no real member
+    r2[[17, 20, 33]] = -1.0  # sentinels among real members, one in the ragged group
+    blk = np.zeros((8, kp), np.float32)
+    blk[5] = r2
+    got = tpairs._group_slab(_t(slab), _t(blk), G).numpy()
+    assert got.shape == (8, 5)
+    for g in range(5):
+        ks = [k for k in range(g * G, min(kp, (g + 1) * G)) if r2[k] >= 0]
+        if not ks:
+            assert got[6, g] == -1.0 and (got[0:3, g] >= 1e30).all()
+            continue
+        both = np.concatenate([lo[:, ks], hi[:, ks]], axis=1)
+        np.testing.assert_array_equal(got[0:3, g], both.min(axis=1))
+        np.testing.assert_array_equal(got[3:6, g], both.max(axis=1))
+        assert got[6, g] == 1.0
+    np.testing.assert_array_equal(got[7], 0.0)
+
+
+def test_extract_group_premise_on_near_misses():
+    """The group test's widening against the member test's slack where it
+    matters: rays that miss a member box by less than its slack (aimed
+    just past a box corner, at distances from 0.01 to 1e4), many with
+    d_a = 0, against a table of 4,096 small boxes in groups of 16 whose
+    union boxes reach far from the members (one member near the origin,
+    the others far). Every block the exact test passes lies in a group
+    the group test passes."""
+    rng = np.random.default_rng(11)
+    kp, G, n = 4096, 16, 4096
+    c = rng.normal(size=(3, kp)).astype(np.float32) * 50.0
+    c[:, ::G] *= 1e-3  # one member of each group near the origin
+    ext = rng.uniform(1e-3, 1.0, (3, kp)).astype(np.float32)
+    slab = np.zeros((8, kp), np.float32)
+    slab[0:3], slab[3:6] = c - ext, c + ext
+    blk = np.zeros((8, kp), np.float32)
+    blk[5] = 1.0
+    k = rng.integers(0, kp, n)
+    dist = 10.0 ** rng.uniform(-2.0, 4.0, n)
+    d = rng.normal(size=(n, 3))
+    d[rng.random(n) < 0.3, rng.integers(0, 3)] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    corner = (c + ext)[:, k].T
+    # aim just past the corner: a miss by about its slack
+    off = rng.normal(size=(n, 3)) * (1e-6 * dist + 1e-5)[:, None]
+    o = corner + off - dist[:, None] * d
+    x = twalk._ray16(_t(o.astype(np.float32)), _t(d.astype(np.float32)),
+                     _t(np.full(n, 3e4, np.float32)), torch.ones(n))
+    sl, bl = _t(slab), _t(blk)
+    feasible = twalk._slab_entry_math(x, sl, bl, kp) < 1e30
+    meets = tpairs._group_entry(x, tpairs._group_slab(sl, bl, G)) < 1e30
+    assert int(feasible[torch.arange(n), _t(k)].sum()) > n // 10
+    assert not (feasible & ~meets[:, torch.arange(kp) // G]).any()
 
 
 def test_pack_unpack_match_jax():
