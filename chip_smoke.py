@@ -11,10 +11,15 @@ KD walk, brute force) and its gradient path on Cornell + an
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernels' build (time, registers, spills and shared memory per
-   kernel);
+   kernel); ``[sass]``: kernels 5 and 12 with the SASS digests of
+   SASS_DIGESTS (their code is shared with kernels 1 and 9 and must not
+   change);
 2. each kernel against its plain PyTorch version, on the inputs a main
    path hands it at its second bounce: slab cull, walk and gather-to-
-   columns from the walk path (slab cull and gather bit for bit, the
+   columns from the walk path (the slab cull, kernel 1, bit for bit,
+   also on the pair path's first pass-3 call where one fires, with its
+   group premise on every ray and the group and member tests its
+   two-level cull runs; the gather bit for bit, the
    gather's time against ``index_select`` and twice its bound, walk ids
    on >= 99.99% of rays with t within 1e-5 relative and, as its skips
    are exact, t and ids equal to the plain version's on every ray, on a
@@ -45,7 +50,9 @@ KD walk, brute force) and its gradient path on Cornell + an
    against the brute-force kernel on every ray;
 4. ``[cluster]``: kernels 9-12 against their plain versions on the inputs
    the cluster-rounds and binned paths hand them at their second bounce
-   (sphere cull and argmin bins bit for bit; the rounds on the calls of
+   (sphere cull and argmin bins bit for bit, the sphere cull also on the
+   cluster paths' bounce 0, with its group premise on every ray and
+   the group and member tests its two-level cull runs; the rounds on the calls of
    both paths ids on >= 99.99% of rays with t within 1e-5 relative and,
    as its skips are exact, t and ids equal to the plain version's on
    every ray, with its rounds and tests beside the needed ones and its
@@ -64,16 +71,18 @@ KD walk, brute force) and its gradient path on Cornell + an
    entry points every tree of the port has, so it can time an earlier
    tree's kernels);
 4b. ``[shapes]``, only with ``--shapes`` (the measurement that chose the
-   launch-shape constants of kernels 2, 8, 10, 7, 6 and 5; ``--shapes
-   pair_runs,pair_extract`` times only those): the walk, the brute force,
-   the rounds, kernels 7, 6 and 5 built with other launch shapes (rays a
-   thread, threads, thread blocks an SM holds; for the walk and the
-   rounds, the triangle loop's unroll; for kernel 6, the rounds above
-   which a part reads its weights directly; for kernel 5, its blocks a
-   group and its split form's lanes a ray) and timed on the same inputs
-   (kernel 6 also on pass 2's call and bounce 0's heaviest launch, kernel
-   5 on pass 2's and in its split form on pass 1's), each equal to the
-   sources' own shape bit for bit;
+   launch-shape constants of kernels 2, 8, 10, 7, 6, 5, 1 and 9;
+   ``--shapes slab_cull,cluster_cull`` times only those): the walk, the
+   brute force, the rounds, kernels 7, 6, 5, 1 and 9 built with other
+   launch shapes (rays a thread, threads, thread blocks an SM holds; for
+   the walk and the rounds, the triangle loop's unroll; for kernel 6, the
+   rounds above which a part reads its weights directly; for kernels 5, 1
+   and 9, their blocks a group;
+   for kernel 5, its split form's lanes a ray) and timed on
+   the same inputs (kernel 6 also on pass 2's call and bounce 0's
+   heaviest launch, kernel 5 on pass 2's and in its split form on pass
+   1's, kernel 1 on pass 3's, kernel 9 on the binned path's), each equal
+   to the sources' own shape bit for bit;
 5. golden parity: ``cornell_64``, ``cornell_spec_64`` (every pixel but
    the ten its jit render branched), ``mesh_pairs_48`` in its own (pair)
    config and in walk, cluster-rounds and binned config, ``mesh_kd_48``
@@ -126,9 +135,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -214,12 +225,32 @@ EXTRACT_OPS_PER_GROUP = 3 * 8 + 7 + 3 + 3
 # Group sizes whose premise chip_smoke.py checks on kernel 5's calls (the
 # blocks a group [shapes] times).
 EXTRACT_GROUPS = (4, 8, 16)
+# Float32 operations of one (live ray, non-empty group) test of kernel 1's
+# two-level cull: kernel 5's group test (csrc/slab_group.cuh meets_group).
+SLAB_OPS_PER_GROUP = EXTRACT_OPS_PER_GROUP
 # Float32 operations per (live ray, real block) pair of the sphere cull
 # and the argmin bins: two three-term dot products (3 multiplies, 2 adds
 # each), t_ca (1), dline2 (2 multiplies, 3 add/subtract), the entry
 # (subtract, max), 4 compares and 1 add of the feasibility test, and one
 # min (or compare) into the tile bound or the ray's bin.
 CULL_OPS_PER_PAIR = 5 + 5 + 1 + 5 + 2 + 5 + 1
+# Float32 operations of one (live ray, non-empty group) test of kernel 9's
+# two-level cull (csrc/cluster_entry.cuh group_bound): the two dot products
+# (10), t_ca (1) and dline2 (5) on the group's sphere, the scale and the
+# widened radius and margin (add; multiply, add; multiply; multiply), the
+# widened entry (2 subtracts, max) and the tests (compare; 2 adds and a
+# compare; compare; the group's flag). Each ray's margin factors (about 12
+# operations, once a ray) are left out.
+CULL_OPS_PER_GROUP = 10 + 1 + 5 + 1 + 2 + 1 + 1 + 3 + 1 + 3 + 1 + 1
+# The SASS digests (sass_digest) of kernels this tree must build as commit
+# 2e5ed33 (before kernels 1 and 9 took their shared headers) did, taken
+# from that commit's sources built with cuda_build.NVCC_FLAGS by
+# the nvcc of SASS_NVCC on the H100 machine: kernel 5, whose group math
+# moved into csrc/slab_group.cuh, and kernel 12, whose header
+# (csrc/cluster_entry.cuh) gained the group sphere. A change that alters
+# one of them on purpose records its new digest here.
+SASS_DIGESTS = {"pair_extract": "0deace8772a58502", "binned_argmin": "c4ebffb3dcaf9a09"}
+SASS_NVCC = "release 12.9, V12.9.86"
 # A main path whose first iteration takes longer than this (ms) is timed
 # as one call of one iteration.
 SLOW_ITERATION_MS = 2000.0
@@ -275,20 +306,30 @@ SWEEP_EXTRA = ("rows", "slices", "one_pass_ms", "full_width_ms", "full_width_bou
 # inputs (dead lanes keep their directions).
 BRUTE_EXTRA = ("path_inputs_ms",)
 # The pair kernels' records also give the pair path's pass-2 call (kernel 5:
-# also its other form on each call, and the (ray, block or group) tests it
-# ran on the pass-1 call).
+# also its other form on each call).
 PAIR_EXTRA = ("pass2_ms", "pass2_plain_ms", "pass2_bound_ms", "pass2_bound_by",
-              "pass2_one_lane_ms", "split_ms", "tests_run")
+              "pass2_flat_bound_ms", "pass2_one_lane_ms", "split_ms")
+# The records of kernels 5, 1 and 9, whose bound (group_bound) counts the
+# (ray, block or group) tests their groups need, also give those tests (on
+# kernel 5's pass-1 call) and the flat bound, every live ray x every real
+# block.
+GROUP_EXTRA = ("tests_run", "flat_bound_ms")
+# The culls' records also give their time and bound on the other recorded
+# calls: kernel 1 on a pass-3 call of the pair path (where one fires),
+# kernel 9 on the binned path's call and on the cluster paths' bounce 0
+# (the cluster_r4 path's bounce-0 call).
+CULL_EXTRA = ("pass3_ms", "pass3_bound_ms", "binned_ms", "binned_bound_ms", "cluster_r4_ms",
+              "cluster_r4_bound_ms")
 # Each main path's image and its iteration count (phase_main_path).
 IMAGES = {}
-# Launch shapes [shapes] times for kernels 2, 8, 10, 7, 6 and 5: the values
+# Launch shapes [shapes] times for kernels 2, 8, 10, 7, 6, 5, 1 and 9: the values
 # of each source's SHAPE_CONSTANTS (rays a thread, threads a thread block,
 # thread blocks an SM must hold under __launch_bounds__; kernels 7 and 6
 # take one pair a thread, and size their weight slots for their blocks an
 # SM; kernel 6's rounds above which a part reads its weights directly, 0
-# for never; kernel 5's blocks a group and lanes a ray in its
-# split form); the first is the source's own. The brute force's ray tile
-# is rays a thread x threads.
+# for never; kernel 5's blocks a group and lanes a ray in its split form;
+# the culls' threads a thread block and blocks a group); the first is the
+# source's own. The brute force's ray tile is rays a thread x threads.
 SHAPES = {"walk": ((1, 128, 6, 0), (1, 128, 6, 4), (1, 128, 6, 8), (1, 256, 4, 4),
                    (4, 256, 2, 0), (2, 256, 2, 0), (2, 256, 3, 0), (4, 128, 4, 0), (8, 128, 2, 0),
                    (2, 512, 1, 0), (1, 1024, 1, 0), (2, 128, 4, 0), (1, 256, 4, 0), (1, 64, 6, 0)),
@@ -301,7 +342,9 @@ SHAPES = {"walk": ((1, 128, 6, 0), (1, 128, 6, 4), (1, 128, 6, 8), (1, 256, 4, 4
           "pair_runs": ((256, 3, 2), (256, 3, 0), (256, 3, 1), (256, 3, 4), (256, 2, 2),
                         (256, 4, 2), (128, 4, 2), (128, 6, 2)),
           "pair_extract": ((128, 1, 8, 4), (128, 1, 8, 2), (128, 1, 8, 8), (128, 1, 4, 4),
-                           (128, 1, 16, 4), (128, 2, 8, 4), (256, 1, 8, 4))}
+                           (128, 1, 16, 4), (128, 2, 8, 4), (256, 1, 8, 4)),
+          "slab_cull": ((1024, 16), (1024, 8), (1024, 32), (512, 16), (256, 8)),
+          "cluster_cull": ((1024, 8), (1024, 16), (1024, 4), (512, 8), (256, 8))}
 # The constants SHAPES sets in each source, in order (kUnroll: the triangle
 # loop's unroll, 0 leaving it to the compiler).
 SHAPE_CONSTANTS = {"walk": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
@@ -309,7 +352,9 @@ SHAPE_CONSTANTS = {"walk": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
                    "cluster_rounds": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
                    "pair_bdiag": ("kThreads", "kMinBlocks"),
                    "pair_runs": ("kThreads", "kMinBlocks", "kDirectRounds"),
-                   "pair_extract": ("kThreads", "kRpt", "kGroup", "kSplitLanes")}
+                   "pair_extract": ("kThreads", "kRpt", "kGroup", "kSplitLanes"),
+                   "slab_cull": ("kThreads", "kGroup"),
+                   "cluster_cull": ("kThreads", "kGroup")}
 # The brute force's triangle blocks [shapes] also times (the wrapper's
 # default is 512).
 BRUTE_TRI_BLOCKS = (256, 1024)
@@ -519,6 +564,16 @@ def bound(nbytes: float, ops: float) -> dict:
                 bound_by="operations" if t_ops > t_bytes else "bytes")
 
 
+def group_bound(nbytes: float, grouped_ops: float, flat_ops: float) -> tuple:
+    """The bound of kernels 5, 1 and 9, whose skip by groups of blocks is
+    exact: the lesser of the bounds of the tests their groups need
+    (``grouped_ops``) and of every live ray x every real block
+    (``flat_ops``), since the function may be computed either way. ->
+    (bound dict, flat bound dict)."""
+    grouped, flat = bound(nbytes, grouped_ops), bound(nbytes, flat_ops)
+    return (grouped if grouped["bound_ms"] <= flat["bound_ms"] else flat), flat
+
+
 def pair_bound(blk_s, cm, kreal) -> tuple:
     """The least time of the pair test on one call (kernels 6 and 7): each
     pair's block id read and its packed result written, the RAY_FEATURE_BYTES
@@ -535,6 +590,148 @@ def pair_bound(blk_s, cm, kreal) -> tuple:
     return bound(nbytes, pair_tests * MT_OPS_PER_TEST), pair_tests, int(used.numel())
 
 
+def cull_groups(label, x, tile, kp, real, member, group, G: int) -> dict:
+    """The two-level cull of kernel 1 or 9 on one call, in groups of
+    G blocks: the premise, that every (ray, block) whose entry
+    ``member(x)`` is below BIG lies in a group whose ``group(x)`` is below
+    BIG (a pair outside fails the run), and the tests the kernel runs. Per
+    tile the kernel takes the live rays in order, 32 to a warp; a warp runs
+    a group's member tests when the group test passes for one of its rays.
+    -> dict(group_tests: live rays x non-empty groups, member_tests: live
+    rays x real members of the groups their warp meets, lane_tests: the
+    same for all 32 lanes of such a warp, met_mean and met_max: groups met
+    per warp, groups: non-empty groups)."""
+    ng = -(-kp // G)
+    members = torch.zeros((ng * G,), dtype=torch.float32, device=x.device)
+    members[:kp] = real.float()
+    members = members.reshape(ng, G).sum(dim=1)  # real members a group
+    group_of = torch.arange(kp, device=x.device) // G
+    live = x[:, 7] > 0
+    rows = max(tile, 32768 // tile * tile)
+    bad = member_tests = lane_tests = 0
+    met = []
+    for r0 in range(0, x.shape[0], rows):
+        xs, ls = x[r0:r0 + rows], live[r0:r0 + rows]
+        feasible = member(xs) < BIG
+        gmeet = group(xs) < BIG
+        bad += int((feasible & ~gmeet[:, group_of]).sum())
+        slot, wmet = tcl._warp_meets(ls, gmeet, tile)
+        wmet = (wmet > 0).float()
+        wlive = torch.bincount(slot[ls], minlength=wmet.shape[0]).float()
+        wtests = wmet @ members
+        member_tests += int((wtests * wlive).sum())
+        lane_tests += int((wtests * 32 * (wlive > 0)).sum())
+        met.append(wmet.sum(dim=1)[wlive > 0])
+    if bad:
+        raise AssertionError(f"{label}: {bad} feasible (ray, block) pairs lie in a group of {G} "
+                             f"whose group test fails")
+    met = torch.cat(met)
+    groups = int((members > 0).sum())
+    return dict(group_tests=int(live.sum()) * groups, member_tests=member_tests,
+                lane_tests=lane_tests, met_mean=met.mean().item() if met.numel() else 0.0,
+                met_max=int(met.max()) if met.numel() else 0, groups=groups)
+
+
+def check_tile_cull(name: str, label: str, args) -> dict:
+    """Kernel 1 (``name`` "slab_cull") or 9 ("cluster_cull") on one recorded
+    call: bit for bit against its plain version (an entry the kernel lost to
+    BIG fails; a -0.0 of the plain version compares equal to the kernel's
+    +0.0, and their count is printed); the group premise and the tests its
+    two-level cull runs (cull_groups); its time, its plain version's, and
+    its bound (group_bound: the tests the groups need, or the flat count
+    where that is less), with the flat bound, every live ray x every real
+    block, beside it as ``flat_bound_ms``."""
+    x, table, blk, tile = args
+    kp = blk.shape[1]
+    real = blk[5] >= 0
+    G = source_shape(name)[SHAPE_CONSTANTS[name].index("kGroup")]
+    if name == "slab_cull":
+        fn, plain = twalk.slab_cull, twalk._slab_cull_ref
+        gslab = twalk._group_slab(table, blk, G)
+        member = lambda xs: twalk._slab_entry_math(xs, table, blk, kp)  # noqa: E731
+        group = lambda xs: twalk._group_entry(xs, gslab)  # noqa: E731
+        per_pair, per_group = SLAB_OPS_PER_PAIR, SLAB_OPS_PER_GROUP
+    else:
+        fn, plain = tcl.cull, tcl._cull_ref
+        gsph = tcl._group_sphere(table, blk, G)
+        member = lambda xs: tcl._entries(xs, table, blk)  # noqa: E731
+        group = lambda xs: tcl._group_sphere_entry(xs, gsph)  # noqa: E731
+        per_pair, per_group = CULL_OPS_PER_PAIR, CULL_OPS_PER_GROUP
+    got = fn(*args)
+    want = plain(*args)
+    sync(x.device)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {label} differs from its plain version in "
+                             f"{int((got != want).sum())} entries")
+    negzero = int(((want == 0) & torch.signbit(want)).sum())
+    g = cull_groups(f"{name} {label}", x, tile, kp, real, member, group, G)
+    live, k_real = int((x[:, 7] > 0).sum()), int(real.sum())
+    nbytes = (x.numel() + table.numel() + blk.numel() + got.numel()) * 4
+    flat_tests = live * k_real
+    least, flat = group_bound(nbytes, g["group_tests"] * per_group
+                              + g["member_tests"] * per_pair, flat_tests * per_pair)
+    res = dict(max_abs_err=0.0, ms=time_ms(lambda: fn(*args), 20),
+               plain_ms=time_ms(lambda: plain(*args), 3), library_ms=None, **least,
+               flat_bound_ms=flat["bound_ms"], tests_run=g["group_tests"] + g["member_tests"],
+               shape=f"x [{x.shape[0]},{x.shape[1]}] ({live} live), kp {kp} ({k_real} real, "
+                     f"{g['groups']} non-empty groups of {G}), tile {tile}, "
+                     f"{int((want < BIG).sum())} feasible entries")
+    log(f"[kernels] {name} {label} == plain bit for bit ({negzero} -0.0 entries in the plain "
+        f"version); {res['shape']}; the group premise holds on all {x.shape[0]} rays")
+    log(f"[kernels] {name} {label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), flat "
+        f"bound {flat['bound_ms']:.4f} ms ({flat['bound_by']}, every live ray x every real "
+        f"block: {flat_tests} tests)")
+    log(f"[kernels] {name} {label}, groups of {G}: {g['group_tests']} group tests + "
+        f"{g['member_tests']} member tests = {res['tests_run']} ray tests ({g['lane_tests']} "
+        f"member tests counting every lane of a warp that runs them) against {flat_tests} flat; "
+        f"groups met per warp: mean {g['met_mean']:.2f}, max {g['met_max']} of {g['groups']}")
+    return res
+
+
+def sass_digest(lib) -> str:
+    """The first 16 hex digits of the sha256 of the SASS instructions of
+    every kernel in the shared library ``lib`` (``cuobjdump -sass``), in
+    order, without the function names and addresses: two builds of the
+    same code give the same digest, whatever the file or the hash of its
+    anonymous namespace."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    instrs = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", out)
+    if not instrs:
+        raise AssertionError(f"cuobjdump shows no SASS in {lib}")
+    text = "\n".join(re.sub(r"_GLOBAL__N__\w+", "", i) for i in instrs)
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def nvcc_release() -> str:
+    """nvcc's "release X.Y, VX.Y.Z" (the compiler the digests depend on)."""
+    out = subprocess.run([cuda_build._nvcc(), "--version"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return re.search(r"release [^\n]*", out).group(0).strip()
+
+
+def phase_sass() -> None:
+    """Kernels 5 and 12 (SASS_DIGESTS) as this tree builds them against
+    their SASS as commit 2e5ed33 built them: kernel 5's group math moved
+    into csrc/slab_group.cuh and kernel 12's header gained the group
+    sphere since, and neither kernel's code may change. The digests hold
+    for the nvcc they were taken with (SASS_NVCC): under another the run
+    fails, so that a new toolchain's digests are recorded on purpose."""
+    release = nvcc_release()
+    if release != SASS_NVCC:
+        raise AssertionError(f"[sass] nvcc {release}: SASS_DIGESTS are of nvcc {SASS_NVCC}; "
+                             f"record this nvcc's digests of commit 2e5ed33's sources")
+    for name, want in SASS_DIGESTS.items():
+        got = sass_digest(cuda_build.library_path(name))
+        log(f"[sass] {name}: digest {got}, commit 2e5ed33's {want}: "
+            f"{'unchanged' if got == want else 'CHANGED'}")
+        if got != want:
+            raise AssertionError(f"{name}'s SASS differs from commit 2e5ed33's")
+
+
 def phase_kernels(scene, config, device) -> dict:
     """Kernel vs plain version on the main path's inputs at bounce 1."""
     n = int(scene.camera.resolution[0]) * int(scene.camera.resolution[1])
@@ -545,28 +742,9 @@ def phase_kernels(scene, config, device) -> dict:
     sync(device)
     results = {}
 
-    # -- slab cull: bit-equal ------------------------------------------
-    x, slab, blk, tile = rs.args
-    got = twalk.slab_cull(x, slab, blk, tile)
-    want = twalk._slab_cull_ref(x, slab, blk, tile)
-    sync(device)
-    if not torch.equal(got, want):
-        bad = (got != want).sum().item()
-        raise AssertionError(f"slab_cull differs from its plain version in {bad} entries")
-    k_real = int((blk[5] >= 0).sum())
-    rays = x.shape[0]
-    live_rays = int((x[:, 7] > 0).sum())  # dead rays add nothing to a tile's min
-    slab_bytes = (x.numel() + slab.numel() + blk.numel() + got.numel()) * 4
-    slab_ops = live_rays * k_real * SLAB_OPS_PER_PAIR
-    results["slab_cull"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: twalk.slab_cull(x, slab, blk, tile), 20),
-        plain_ms=time_ms(lambda: twalk._slab_cull_ref(x, slab, blk, tile), 3),
-        library_ms=None, **bound(slab_bytes, slab_ops),
-        shape=f"x [{rays},16] ({live_rays} live), slab/blk [8,{blk.shape[1]}] "
-              f"({k_real} real blocks), tile {tile}",
-    )
-    log(f"[kernels] slab_cull == plain bit for bit; {results['slab_cull']['shape']}")
+    # -- slab cull: bit-equal; the group premise ----------------------
+    SHAPE_INPUTS["slab_cull"] = rs.args
+    results["slab_cull"] = check_tile_cull("slab_cull", "walk path", rs.args)
 
     # -- walk: ids on >= 99.99% of rays, t within 1e-5 where they differ --
     sel, lb, nsel, r, t0, act, cm, wtile = rw.args
@@ -649,12 +827,12 @@ def phase_kernels(scene, config, device) -> dict:
     return results
 
 
-def bounce_args(scene, config, intersector: str, device):
+def bounce_args(scene, config, intersector: str, device, bounce: int = 1):
     """The arguments one iteration of ``config``'s render hands the
-    integrator's ``intersector`` at its second bounce."""
+    integrator's ``intersector`` at its second bounce (or ``bounce``)."""
     n = int(scene.camera.resolution[0]) * int(scene.camera.resolution[1])
     step = make_render_block_fn(scene, config, 1, device=device)
-    with Recorder(tint, intersector, 1) as rec:
+    with Recorder(tint, intersector, bounce) as rec:
         step(torch.zeros((n, 3), device=device), prng_key(0), 1)
     sync(device)
     return rec.args, rec.kwargs
@@ -689,7 +867,7 @@ def extract_groups(label, x, slab, blk, rpt: int, lanes: int) -> dict:
     rows = 32768  # rays a chunk: a multiple of every warp's
     out = {}
     for G in EXTRACT_GROUPS:
-        gslab = tpairs._group_slab(slab, blk, G)
+        gslab = twalk._group_slab(slab, blk, G)
         ng = gslab.shape[1]
         steps = -(-ng // lanes)
         members = torch.zeros((steps * lanes * G,), dtype=torch.float32, device=x.device)
@@ -701,7 +879,7 @@ def extract_groups(label, x, slab, blk, rpt: int, lanes: int) -> dict:
         for r0 in range(0, n, rows):
             xs, ls = x[r0:r0 + rows], live[r0:r0 + rows]
             feasible = twalk._slab_entry_math(xs, slab, blk, kp) < BIG
-            gmeet = tpairs._group_entry(xs, gslab) < BIG
+            gmeet = twalk._group_entry(xs, gslab) < BIG
             bad += int((feasible & ~gmeet[:, group_of]).sum())
             gmeet = torch.cat([gmeet, gmeet.new_zeros((gmeet.shape[0], steps * lanes - ng))],
                               dim=1).reshape(-1, steps, lanes).any(dim=2)
@@ -775,7 +953,7 @@ def phase_pairs(scene, device):
                                "intersect_mesh_pairs", device)
     with Recorder(tpairs, "extract", 0, match=lambda a, kw: a[3] == tpairs.F2) as r2, \
             Recorder(tpairs, "extract", 0, match=lambda a, kw: a[3] != tpairs.F2) as r1, \
-            Recorder(tpairs, "pair_runs", 0) as rr:
+            Recorder(tpairs, "pair_runs", 0) as rr, Recorder(twalk, "slab_cull", 0) as r3:
         hit_p, stats = tpairs.intersect_mesh_pairs(*args, **kwargs, collect_stats=True)
     sync(device)
     log(f"[pairs] bounce 1 stats: {stats}")
@@ -813,20 +991,26 @@ def phase_pairs(scene, device):
         nbytes = (x.numel() + slab.numel() + blk.numel()
                   + sum(t.numel() for t in got)) * 4
         flat_tests = live * k_real
-        ops = flat_tests * EXTRACT_OPS_PER_PAIR + feasible * EXTRACT_OPS_PER_FEASIBLE
+        g = groups[group]
+        least, flat = group_bound(
+            nbytes, g["group_tests"] * EXTRACT_OPS_PER_GROUP
+            + g["member_tests"] * EXTRACT_OPS_PER_PAIR + feasible * EXTRACT_OPS_PER_FEASIBLE,
+            flat_tests * EXTRACT_OPS_PER_PAIR + feasible * EXTRACT_OPS_PER_FEASIBLE)
         res = dict(
             max_abs_err=0.0,
             ms=time_ms(lambda: tpairs.extract(x, slab, blk, F, split), 20),
             plain_ms=time_ms(lambda: tpairs._extract_ref(x, slab, blk, F), 3),
-            library_ms=None, **bound(nbytes, ops),
+            library_ms=None, **least,
+            flat_bound_ms=flat["bound_ms"], tests_run=g["group_tests"] + g["member_tests"],
             shape=f"x [{x.shape[0]},16] ({live} live), kp {blk.shape[1]} ({k_real} real), "
                   f"F {F}, {feasible} feasible pairs{', split' if split else ''}")
         # the other form on the same call, for the record
         res["other_form_ms"] = time_ms(lambda: tpairs.extract(x, slab, blk, F, not split), 20)
         log(f"[kernels] pair_extract {label} == plain bit for bit; {res['shape']}; "
             f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, every live ray x every real "
-            f"block: {flat_tests} tests)")
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, groups of {group}), "
+            f"flat bound {flat['bound_ms']:.4f} ms ({flat['bound_by']}, every "
+            f"live ray x every real block: {flat_tests} tests)")
         log(f"[kernels] pair_extract {label}: the group premise holds on all {x.shape[0]} rays "
             f"for groups of {', '.join(map(str, EXTRACT_GROUPS))}")
         log(f"[kernels] pair_extract {label}: the {'one-lane' if split else 'split'} form on "
@@ -839,17 +1023,6 @@ def phase_pairs(scene, device):
                 f"tests counting every ray of a warp that runs them) against {flat_tests} "
                 f"flat; steps with member tests per warp with a live ray: mean "
                 f"{g['met_mean']:.2f}, max {g['met_max']} of {g['steps']}")
-        g = groups[group]
-        res["tests_run"] = g["group_tests"] + g["member_tests"]
-        hier = bound(nbytes, g["group_tests"] * EXTRACT_OPS_PER_GROUP
-                     + g["member_tests"] * EXTRACT_OPS_PER_PAIR
-                     + feasible * EXTRACT_OPS_PER_FEASIBLE)
-        log(f"[kernels] pair_extract {label}: the tests the groups of {group} need bound it "
-            f"at {hier['bound_ms']:.4f} ms ({hier['bound_by']})")
-        if res["ms"] < res["bound_ms"]:  # the flat count overstates the work
-            log(f"[kernels] pair_extract {label}: below the flat bound; its bound is "
-                f"restated to the tests the groups need")
-            res.update(hier)
         if label == "pass 1":
             res["split_ms"] = res.pop("other_form_ms")
             results["pair_extract"] = res
@@ -857,7 +1030,14 @@ def phase_pairs(scene, device):
             results["pair_extract"].update(
                 pass2_ms=res["ms"], pass2_plain_ms=res["plain_ms"],
                 pass2_bound_ms=res["bound_ms"], pass2_bound_by=res["bound_by"],
-                pass2_one_lane_ms=res["other_form_ms"])
+                pass2_flat_bound_ms=res["flat_bound_ms"], pass2_one_lane_ms=res["other_form_ms"])
+
+    # -- the slab cull (kernel 1) on pass 3's first call, where it fires --
+    if r3.args is None:
+        log("[kernels] slab_cull: pass 3 did not fire on the pair path's bounce 1")
+    else:
+        SHAPE_INPUTS["slab_cull pass 3"] = r3.args
+        results["slab_cull pass 3"] = check_tile_cull("slab_cull", "pair path pass 3", r3.args)
 
     # -- pair test, pass 1 round 1 and pass 2 round 1 ---------------------
     blk_s, featp, cm, ptile, kreal = rr.args
@@ -993,13 +1173,13 @@ def swapped(module, name: str, value):
 
 
 def phase_shapes(own_logs: dict, names) -> None:
-    """Kernels 2, 8, 10, 7, 6 and 5 (or those of ``names``) in each of
+    """Kernels 2, 8, 10, 7, 6, 5, 1 and 9 (or those of ``names``) in each of
     SHAPES, on the recorded calls of phase_kernels (the walk path's bounce
     1), phase_pairs (the brute force's full bounce; kernels 5 and 6 on the
     pair path's bounce-1 pass-1 and pass-2 calls, kernel 5 also in its
-    split form on pass 1's), phase_launches (kernel
-    6's heaviest launch at bounce 0), phase_cluster (the cluster path's
-    bounce 1) and phase_bdiag: device ms and registers, and the outputs
+    split form on pass 1's; kernel 1 on pass 3's call where one fires),
+    phase_launches (kernel 6's heaviest launch at bounce 0), phase_cluster
+    (the cluster and binned paths' bounce 1) and phase_bdiag: device ms and registers, and the outputs
     equal to the sources' own shape's bit for bit (a ray's or a pair's
     result does not depend on the shape). The brute force also at other
     triangle blocks."""
@@ -1035,6 +1215,12 @@ def phase_shapes(own_logs: dict, names) -> None:
             **{label: on(tpairs.extract, f"pair_extract {label}") for label in ("pass 1", "pass 2")},
             "pass 1 split form": lambda shape: tuple(
                 tpairs.extract(*SHAPE_INPUTS["pair_extract pass 1"][:4], True))}),
+        "slab_cull": (twalk, "SLAB_CULL", {
+            label: on(twalk.slab_cull, key) for label, key in
+            (("walk path", "slab_cull"), ("pass 3", "slab_cull pass 3")) if key in SHAPE_INPUTS}),
+        "cluster_cull": (tcl, "CULL", {
+            "cluster path": on(tcl.cull, "cluster_cull"),
+            "binned path": on(tcl.cull, "cluster_cull binned")}),
     }
     for name, shapes in SHAPES.items():
         if name not in names:
@@ -1098,27 +1284,6 @@ def brute_check(label, hit, args, kwargs, rtol: float = 1e-5) -> None:
         f"{frac:.6%}; max |dt|/t {rel_max:.3g} where both hit (bound {rtol:.3g})")
     if frac < 0.9999 or rel_max > rtol:
         raise AssertionError(f"{label} differs from the brute force on this bounce")
-
-
-def check_cull(args) -> dict:
-    """Kernel 9 against its plain version: bit for bit."""
-    x, cull_w, blk, tile = args
-    got = tcl.cull(x, cull_w, blk, tile)
-    want = tcl._cull_ref(x, cull_w, blk, tile)
-    sync(x.device)
-    if not torch.equal(got, want):
-        raise AssertionError(f"cluster_cull differs from its plain version in "
-                             f"{int((got != want).sum())} entries")
-    k_real = int((blk[5] >= 0).sum())
-    live = int((x[:, 7] > 0).sum())
-    nbytes = (x.numel() + cull_w.numel() + blk.numel() + got.numel()) * 4
-    res = dict(max_abs_err=0.0, ms=time_ms(lambda: tcl.cull(x, cull_w, blk, tile), 20),
-               plain_ms=time_ms(lambda: tcl._cull_ref(x, cull_w, blk, tile), 3),
-               library_ms=None, **bound(nbytes, live * k_real * CULL_OPS_PER_PAIR),
-               shape=f"x [{x.shape[0]},8] ({live} live), kp {blk.shape[1]} ({k_real} real), "
-                     f"tile {tile}")
-    log(f"[kernels] cluster_cull == plain bit for bit; {res['shape']}")
-    return res
 
 
 def rounds_in_tile_order(sel, lb, r, t0, act, cm, tile):
@@ -1278,8 +1443,11 @@ def phase_cluster(scene, device) -> dict:
     both intersectors against the brute-force kernel on every ray of it."""
     use_full_f32()
     results = {}
-    args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **CLUSTER),
-                               "intersect_mesh_cluster", device)
+    # the cull's first call is bounce 0's: camera rays, every one live, the
+    # same call as the 4-round (cluster_r4) render's bounce 0
+    with Recorder(tcl, "cull", 0) as r0c:
+        args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **CLUSTER),
+                                   "intersect_mesh_cluster", device)
     cm = args[2]
     with Recorder(tcl, "cull", 0) as rc, Recorder(tcl, "cluster_rounds", 0) as rr, \
             Recorder(tcl, "sweep", 0) as rs:
@@ -1295,7 +1463,8 @@ def phase_cluster(scene, device) -> dict:
         log(f"[cluster] cluster rounds (4), bounce 1: {stats}")
         brute_check("[cluster] cluster rounds (4)", hit, args, kwargs)
         sweep_args = rs4.args
-    results["cluster_cull"] = check_cull(rc.args)
+    SHAPE_INPUTS["cluster_cull"] = rc.args
+    results["cluster_cull"] = check_tile_cull("cluster_cull", "cluster path", rc.args)
     results["cluster_rounds"] = check_rounds(rr.args, "cluster path")
     SHAPE_INPUTS["cluster_rounds"] = rr.args
     results["cluster_sweep"] = check_sweep(sweep_args, "cluster path")
@@ -1303,11 +1472,16 @@ def phase_cluster(scene, device) -> dict:
     args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **BINNED),
                                "intersect_mesh_binned", device)
     with Recorder(tbinned, "argmin_bins", 0) as ra, Recorder(tcl, "sweep", 0) as rbs, \
-            Recorder(tcl, "cluster_rounds", 0) as rbr:
+            Recorder(tcl, "cluster_rounds", 0) as rbr, Recorder(tcl, "cull", 0) as rbc:
         hit, stats = tbinned.intersect_mesh_binned(*args, **kwargs, collect_stats=True)
     log(f"[cluster] binned (32 rounds), bounce 1: {stats}")
     brute_check("[cluster] binned (32)", hit, args, kwargs)
     results["binned_argmin"] = check_argmin(ra.args)
+    SHAPE_INPUTS["cluster_cull binned"] = rbc.args
+    for key, label, rec in (("binned", "binned path", rbc),
+                            ("cluster_r4", "cluster and cluster_r4 paths, bounce 0", r0c)):
+        res = check_tile_cull("cluster_cull", label, rec.args)
+        results["cluster_cull"].update({f"{key}_ms": res["ms"], f"{key}_bound_ms": res["bound_ms"]})
     check_rounds(rbr.args, "binned path")
     if rbs.args is not None:
         results["cluster_sweep_binned"] = check_sweep(rbs.args, "binned path")
@@ -1934,7 +2108,7 @@ def phase_gradcheck(device) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     parser.add_argument("--shapes", nargs="?", const=",".join(SHAPES), default="",
-                        help="also time kernels 2, 8, 10, 7, 6 and 5 (or those named, comma "
+                        help="also time kernels 2, 8, 10, 7, 6, 5, 1 and 9 (or those named, comma "
                              "separated: " + ", ".join(SHAPES) + ") in the other launch "
                              "shapes of SHAPES")
     parser.add_argument("--launches", action="store_true",
@@ -1962,6 +2136,7 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
     log("[build] registers (spill stores/loads, bytes) per entry function: " + "; ".join(
         f"{name} {ptxas_summary(text)}" for name, text in logs.items()))
+    phase_sass()
     t = time.perf_counter()
     if load_native() is None:
         raise AssertionError("the native KD builder did not build (g++ missing?)")
@@ -1983,6 +2158,9 @@ def main() -> int:
     results = phase_kernels(scene, walk_config, device)
     phase_done("kernels")
     pair_results, _ = phase_pairs(scene, device)
+    pass3 = pair_results.pop("slab_cull pass 3", None)
+    if pass3 is not None:
+        results["slab_cull"].update(pass3_ms=pass3["ms"], pass3_bound_ms=pass3["bound_ms"])
     results.update(pair_results)
     phase_done("pairs")
     phase_launches(scene, device)
@@ -2064,7 +2242,8 @@ def main() -> int:
              launches=paths[record_path[name]][name],
              **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")},
-             **{k: results[name][k] for k in SWEEP_EXTRA + BRUTE_EXTRA + PAIR_EXTRA
+             **{k: results[name][k]
+                for k in SWEEP_EXTRA + BRUTE_EXTRA + PAIR_EXTRA + GROUP_EXTRA + CULL_EXTRA
                 if k in results[name]})
         for name, _, source, replaces in KERNELS
     ]}

@@ -53,14 +53,13 @@ from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-CULL = CudaKernel("cluster_cull", "cluster_cull", [_P, _P, _P, _P, _I, _I, _I])
+CULL = CudaKernel("cluster_cull", "cluster_cull", [_P, _P, _P, _P, _I, _I, _I, _I])
 ROUNDS = CudaKernel("cluster_rounds", "cluster_rounds", [_P] * 13 + [_I] * 5)
 SWEEP = CudaKernel("cluster_sweep", "cluster_sweep",
                    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I])
 
-# Shared memory the sphere cull stages per ray of its tile (bytes): o, d,
-# t0, act, o.d and |o|^2.
-_CULL_BYTES_PER_RAY = 40
+# Blocks a group of kernel 9's two-level cull (csrc/cluster_cull.cu kGroup).
+CULL_GROUP = 8
 # Elements of [rays, blocks] entries the plain cull makes at once.
 _REF_ENTRY_ELEMS = 1 << 26
 
@@ -375,6 +374,139 @@ def _cull_ref(x, cull_w, blk, tile: int):
     return torch.cat(out) if out else x.new_empty((0, kp))
 
 
+# The unit roundoff of float32, 2^-24: the group test's margins are
+# multiples of it (csrc/cluster_entry.cuh).
+_U = 2.0 ** -24
+# The group sphere's f64 bounds are scaled up by this before they are
+# rounded up to float32 (csrc/cluster_entry.cuh group_sphere).
+_GROUP_UP = 1.0 + 2.0 ** -30
+
+
+def _f32_up(v):
+    """float64 -> the least float32 >= v (``__double2float_ru``)."""
+    r = v.to(torch.float32)
+    return torch.where(r.to(torch.float64) < v, torch.nextafter(r, torch.full_like(r, torch.inf)), r)
+
+
+def _group_sphere(cull_w, blk, G: int):
+    """The bounding spheres kernel 9 builds over each aligned group of G
+    blocks -> [8, ceil(kp / G)] rows C_xyz, R, |C|^2, CR >= |C| + R, 1
+    where the group has a real member (blk row 5 >= 0) and -1 where it has
+    none, 0. C is the centre of the box around the real members' spheres
+    (centres from cull_w's d.c half, radius max(radius, sqrt(r2))), R >=
+    |c_k - C| + radius_k over them, both bounds computed in float64 and
+    rounded up to float32; an empty group is all zeros but its -1. The same
+    operations as csrc/cluster_entry.cuh group_sphere. For the tests and
+    chip_smoke.py: the main path does not call it."""
+    kp = blk.shape[1]
+    ng = -(-kp // G)
+    pad = ng * G - kp
+    c = cull_w[3:6, :kp].to(torch.float64)
+    real = blk[5] >= 0.0
+    rb = torch.maximum(blk[3].to(torch.float64), torch.sqrt(blk[5].to(torch.float64).clamp_min(0.0)))
+    if pad:
+        c = torch.cat([c, c.new_zeros((3, pad))], dim=1)
+        rb = torch.cat([rb, rb.new_zeros((pad,))])
+        real = torch.cat([real, real.new_zeros((pad,))])
+    lo = torch.where(real, c - rb, 1e300).reshape(3, ng, G).amin(dim=2)
+    hi = torch.where(real, c + rb, -1e300).reshape(3, ng, G).amax(dim=2)
+    nonempty = real.reshape(ng, G).any(dim=1)
+    cen = torch.where(nonempty, 0.5 * (lo + hi), 0.0).to(torch.float32)  # [3, ng]
+    dv = c - cen.to(torch.float64).repeat_interleave(G, dim=1)
+    reach = torch.sqrt(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2]) + rb
+    rmax = torch.where(real, reach, 0.0).reshape(ng, G).amax(dim=1)
+    radius = _f32_up(rmax * _GROUP_UP)
+    c64 = cen.to(torch.float64)
+    norm = torch.sqrt(c64[0] * c64[0] + c64[1] * c64[1] + c64[2] * c64[2])
+    out = torch.zeros((8, ng), dtype=torch.float32, device=blk.device)
+    out[0:3] = cen
+    out[3] = torch.where(nonempty, radius, 0.0)
+    out[4] = torch.where(nonempty, cen[0] * cen[0] + cen[1] * cen[1] + cen[2] * cen[2], 0.0)
+    out[5] = torch.where(nonempty, _f32_up((norm + radius.to(torch.float64)) * _GROUP_UP), 0.0)
+    out[6] = torch.where(nonempty, 1.0, -1.0)
+    return out
+
+
+def _group_sphere_entry(x, gsph):
+    """[n, 8] ray records (o d t0 act) x [8, ng] group spheres
+    (``_group_sphere``) -> [n, ng]: where kernel 9's group test passes, the
+    group's widened entry bound, else BIG. The test is ``_entry_math`` on
+    (C, R) widened by margins that grow with |o| + |C| + R and with how far
+    |d| is from 1; csrc/cluster_entry.cuh argues that every block with an
+    entry below BIG lies in a group whose entry here is below BIG and no
+    later. The same float32 operations as the kernel's, unfused."""
+    o, d = x[:, 0:3], x[:, 3:6]
+    t0, act = x[:, 6:7], x[:, 7:8] > 0.0
+
+    def dot(a, b):
+        return a[:, 0:1] * b[0:1] + a[:, 1:2] * b[1:2] + a[:, 2:3] * b[2:3]
+
+    od = o[:, 0:1] * d[:, 0:1] + o[:, 1:2] * d[:, 1:2] + o[:, 2:3] * d[:, 2:3]
+    oo = o[:, 0:1] * o[:, 0:1] + o[:, 1:2] * o[:, 1:2] + o[:, 2:3] * o[:, 2:3]
+    dd = d[:, 0:1] * d[:, 0:1] + d[:, 1:2] * d[:, 1:2] + d[:, 2:3] * d[:, 2:3]
+    m = torch.clamp_min(dd, 1.0)
+    db = torch.abs(dd - 1.0) + (4 * _U) * m
+    w2 = 2.01 * torch.sqrt((17 * _U) * m + db)
+    mu = 2.0 * (db + (16 * _U) * m)
+    on = torch.sqrt(oo) * 1.000001
+    cen, radius, cc, reach, flag = gsph[0:3], gsph[3:4], gsph[4:5], gsph[5:6], gsph[6:7]
+    t_ca = dot(d, cen) - od
+    dline2 = cc - 2.0 * dot(o, cen) + oo - t_ca * t_ca
+    scale = on + reach
+    wide = radius + w2 * scale
+    margin = mu * scale
+    entry = torch.clamp_min(t_ca - radius - margin, 0.0)
+    ok = ((flag > 0.0) & (dline2 <= wide * wide) & (t_ca + radius + margin > 0.0)
+          & (entry < t0) & act)
+    return torch.where(ok, entry, BIG)
+
+
+def _warp_meets(live, meets, tile: int):
+    """The warps of kernels 1 and 9 on whole ray tiles: per tile the
+    ``live`` rays [rows] in order, 32 to a warp. -> (slot [rows], each
+    ray's warp; met [tiles * ceil(tile / 32), ng] int32, the live rays of
+    each warp for which ``meets`` [rows, ng] holds)."""
+    warps = -(-tile // 32)
+    lt = live.reshape(-1, tile)
+    warp = (torch.cumsum(lt, dim=1) - 1).clamp_min(0) // 32
+    slot = (torch.arange(lt.shape[0], device=live.device)[:, None] * warps + warp).reshape(-1)
+    met = torch.zeros((lt.shape[0] * warps, meets.shape[1]), dtype=torch.int32,
+                      device=live.device)
+    met.index_add_(0, slot[live], meets[live].to(torch.int32))
+    return slot, met
+
+
+def _grouped_tile_min(x, live, kp: int, entries, group_entries, tile: int, G: int):
+    """The tile-min loop of kernels 1 and 9 in plain form: [n/tile, kp]
+    tile mins of ``entries(x)`` [n, kp] over only the tests the kernel runs.
+    Per tile the kernel takes the ``live`` rays in order, 32 to a warp, and
+    a warp tests the members of an aligned group of G blocks only if
+    ``group_entries(x)`` [n, ceil(kp / G)] is below BIG for one of its
+    rays; dead rays add nothing. A chunk of tiles at a time."""
+    group_of = torch.arange(kp, device=x.device) // G
+    rows = max(tile, _REF_ENTRY_ELEMS // kp // tile * tile)
+    out = []
+    for i in range(0, x.shape[0], rows):
+        xs, ls = x[i:i + rows], live[i:i + rows]
+        slot, met = _warp_meets(ls, group_entries(xs) < BIG, tile)
+        tested = (met[slot] > 0)[:, group_of] & ls[:, None]
+        out.append(torch.where(tested, entries(xs), BIG).reshape(-1, tile, kp).amin(dim=1))
+    return torch.cat(out) if out else x.new_empty((0, kp))
+
+
+def _cull_grouped(x, cull_w, blk, tile: int, G: int = CULL_GROUP):
+    """Kernel 9's skip in plain form: the tile min of the entry bounds over
+    only the (ray, block) tests the kernel runs (``_grouped_tile_min`` with
+    ``_group_sphere_entry`` on ``_group_sphere``'s spheres). Equal to
+    ``_cull_ref`` wherever every feasible (ray, block) lies in a group that
+    passes for the ray: the premise the tests and chip_smoke.py hold. For
+    tests and chip_smoke.py; the main path does not call it."""
+    gsph = _group_sphere(cull_w, blk, G)
+    return _grouped_tile_min(x, x[:, 7] > 0.0, blk.shape[1],
+                             lambda xs: _entries(xs, cull_w, blk),
+                             lambda xs: _group_sphere_entry(xs, gsph), tile, G)
+
+
 def cull(x, cull_w, blk, tile: int):
     """[n/tile, K] tile-min conservative bounding-sphere entry bounds
     (kernel 9) of the [n, 8] ray records ``x`` (o d t0 act)."""
@@ -385,7 +517,7 @@ def cull(x, cull_w, blk, tile: int):
     device = x.device
     n = x.shape[0]
     kp = blk.shape[1]
-    if tile <= 0 or n % tile or tile * _CULL_BYTES_PER_RAY > MAX_SMEM:
+    if tile <= 0 or n % tile or CULL.call_int("cluster_cull_smem_bytes", tile) > MAX_SMEM:
         raise ValueError(f"cull: bad tile {tile} for {n} rays")
     check_tensor(x, "x", torch.float32, (n, 8), device)
     check_tensor(cull_w, "cull_w", torch.float32, (8, 2 * kp), device)
@@ -393,7 +525,7 @@ def cull(x, cull_w, blk, tile: int):
     out = torch.empty((n // tile, kp), dtype=torch.float32, device=device)
     if n:
         CULL.launch(device, x.data_ptr(), cull_w.data_ptr(), blk.data_ptr(),
-                    out.data_ptr(), n, kp, tile)
+                    out.data_ptr(), n, kp, tile, MAX_SMEM)
     return out
 
 

@@ -139,60 +139,6 @@ def _extract_ref(x, slab, blk, F: int):
     return ids, lbov.reshape(-1), cnt, _feat16t(x[:, :8])
 
 
-def _group_slab(slab, blk, G: int):
-    """The union boxes the extraction kernel builds over each aligned group
-    of G blocks -> [8, ceil(kp / G)] rows lo_xyz hi_xyz, 1 where the group
-    has a real member (blk row 5 >= 0) and -1 where it has none, 0. A box
-    holds each real member's lo and hi on every axis; a ragged last group
-    takes the blocks there are. The plain form of the kernel's groups,
-    for the tests and chip_smoke.py: the main path does not call it."""
-    kp = slab.shape[1]
-    ng = -(-kp // G)
-    real = blk[5] >= 0.0
-    lo = torch.where(real, torch.minimum(slab[0:3], slab[3:6]), BIG)
-    hi = torch.where(real, torch.maximum(slab[0:3], slab[3:6]), -BIG)
-    pad = ng * G - kp
-    if pad:
-        lo = torch.cat([lo, lo.new_full((3, pad), BIG)], dim=1)
-        hi = torch.cat([hi, hi.new_full((3, pad), -BIG)], dim=1)
-        real = torch.cat([real, real.new_zeros((pad,))])
-    out = torch.zeros((8, ng), dtype=torch.float32, device=slab.device)
-    out[0:3] = lo.reshape(3, ng, G).amin(dim=2)
-    out[3:6] = hi.reshape(3, ng, G).amax(dim=2)
-    out[6] = torch.where(real.reshape(ng, G).any(dim=1), 1.0, -1.0)
-    return out
-
-
-def _group_entry(x, gslab):
-    """[n, 16] _ray16 records x [8, ng] group boxes (``_group_slab``) ->
-    [n, ng]: where the extraction kernel's group test passes, the group's
-    widened entry, else BIG. The kernel runs a group's member tests for a
-    ray only where this is below BIG (for some ray of the warp). Its
-    widening S = slack(max(|tmin|, |tmax| * 1.00001 + 1e-4)) bounds the
-    slack of every member the exact test can pass (csrc/pair_extract.cu
-    has the argument), so every block with a finite ``_slab_entry_math``
-    entry lies in a group with a finite entry here. The same float32
-    operations as the kernel's, unfused."""
-    t0 = x[:, 6:7]
-    act = x[:, 7:8] > 0.0
-    shape = (x.shape[0], gslab.shape[1])
-    tmin = torch.full(shape, -BIG, dtype=torch.float32, device=x.device)
-    tmax = torch.full(shape, BIG, dtype=torch.float32, device=x.device)
-    for a in range(3):
-        invd = x[:, 8 + a:9 + a]
-        oinv = x[:, 11 + a:12 + a]
-        tlo = gslab[a:a + 1, :] * invd - oinv
-        thi = gslab[3 + a:4 + a, :] * invd - oinv
-        tmin = torch.maximum(tmin, torch.minimum(tlo, thi))
-        tmax = torch.minimum(tmax, torch.maximum(tlo, thi))
-    bnd = torch.maximum(torch.abs(tmin), torch.abs(tmax) * 1.00001 + 1e-4)
-    s = 1e-6 * bnd + 1e-5
-    t_in = torch.clamp_min(tmin - s, 0.0)
-    t_out = tmax + s
-    ok = (t_out >= t_in) & (t_out > 0.0) & (t_in < t0) & act & (gslab[6:7, :] > 0.0)
-    return torch.where(ok, t_in, BIG)
-
-
 def extract(x, slab, blk, F: int, split: bool = False):
     """Per ray: its F nearest-entry feasible blocks and the rest of the
     extraction record (kernel 5; ``_extract_ref`` has the layout). With

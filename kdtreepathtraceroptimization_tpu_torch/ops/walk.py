@@ -40,9 +40,11 @@ from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, Cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-SLAB_CULL = CudaKernel("slab_cull", "slab_cull", [_P, _P, _P, _P, _I, _I, _I])
+SLAB_CULL = CudaKernel("slab_cull", "slab_cull", [_P, _P, _P, _P, _I, _I, _I, _I])
 WALK = CudaKernel("walk", "walk", [_P] * 13 + [_I] * 4)
 
+# Blocks a group of kernel 1's two-level cull (csrc/slab_cull.cu kGroup).
+SLAB_GROUP = 16
 # Elements of [rays, blocks] entries the plain slab cull makes at once.
 _REF_CHUNK_ELEMS = 1 << 26
 
@@ -92,6 +94,61 @@ def _slab_entry_math(x, slab, blk, kp):
     return torch.where(feasible, entry, BIG)
 
 
+def _group_slab(slab, blk, G: int):
+    """The union boxes the extraction kernel builds over each aligned group
+    of G blocks -> [8, ceil(kp / G)] rows lo_xyz hi_xyz, 1 where the group
+    has a real member (blk row 5 >= 0) and -1 where it has none, 0. A box
+    holds each real member's lo and hi on every axis; a ragged last group
+    takes the blocks there are. The plain form of the groups of kernels 1
+    and 5, for the tests and chip_smoke.py: the main path does not call
+    it."""
+    kp = slab.shape[1]
+    ng = -(-kp // G)
+    real = blk[5] >= 0.0
+    lo = torch.where(real, torch.minimum(slab[0:3], slab[3:6]), BIG)
+    hi = torch.where(real, torch.maximum(slab[0:3], slab[3:6]), -BIG)
+    pad = ng * G - kp
+    if pad:
+        lo = torch.cat([lo, lo.new_full((3, pad), BIG)], dim=1)
+        hi = torch.cat([hi, hi.new_full((3, pad), -BIG)], dim=1)
+        real = torch.cat([real, real.new_zeros((pad,))])
+    out = torch.zeros((8, ng), dtype=torch.float32, device=slab.device)
+    out[0:3] = lo.reshape(3, ng, G).amin(dim=2)
+    out[3:6] = hi.reshape(3, ng, G).amax(dim=2)
+    out[6] = torch.where(real.reshape(ng, G).any(dim=1), 1.0, -1.0)
+    return out
+
+
+def _group_entry(x, gslab):
+    """[n, 16] _ray16 records x [8, ng] group boxes (``_group_slab``) ->
+    [n, ng]: where the group test of kernels 1 and 5 passes, the group's
+    widened entry, else BIG. The kernels run a group's member tests for a
+    ray only where this is below BIG (for some ray of the warp). Its
+    widening S = slack(max(|tmin|, |tmax| * 1.00001 + 1e-4)) bounds the
+    slack of every member the exact test can pass (csrc/slab_group.cuh
+    has the argument), so every block with a finite ``_slab_entry_math``
+    entry lies in a group with a finite entry here. The same float32
+    operations as the kernel's, unfused."""
+    t0 = x[:, 6:7]
+    act = x[:, 7:8] > 0.0
+    shape = (x.shape[0], gslab.shape[1])
+    tmin = torch.full(shape, -BIG, dtype=torch.float32, device=x.device)
+    tmax = torch.full(shape, BIG, dtype=torch.float32, device=x.device)
+    for a in range(3):
+        invd = x[:, 8 + a:9 + a]
+        oinv = x[:, 11 + a:12 + a]
+        tlo = gslab[a:a + 1, :] * invd - oinv
+        thi = gslab[3 + a:4 + a, :] * invd - oinv
+        tmin = torch.maximum(tmin, torch.minimum(tlo, thi))
+        tmax = torch.minimum(tmax, torch.maximum(tlo, thi))
+    bnd = torch.maximum(torch.abs(tmin), torch.abs(tmax) * 1.00001 + 1e-4)
+    s = 1e-6 * bnd + 1e-5
+    t_in = torch.clamp_min(tmin - s, 0.0)
+    t_out = tmax + s
+    ok = (t_out >= t_in) & (t_out > 0.0) & (t_in < t0) & act & (gslab[6:7, :] > 0.0)
+    return torch.where(ok, t_in, BIG)
+
+
 def _slab_cull_ref(x, slab, blk, tile: int):
     """Plain slab cull: [n/tile, K] tile-min entries, a chunk of tiles at
     a time."""
@@ -106,6 +163,22 @@ def _slab_cull_ref(x, slab, blk, tile: int):
     return torch.cat(out) if out else x.new_empty((0, kp))
 
 
+def _slab_cull_grouped(x, slab, blk, tile: int, G: int = SLAB_GROUP):
+    """Kernel 1's skip in plain form: the tile min of ``_slab_entry_math``
+    over only the (ray, block) tests the kernel runs. Per tile it takes the
+    live rays in order, 32 to a warp, and a warp tests the members of an
+    aligned group of ``G`` blocks only if the group test
+    (``_group_entry`` on ``_group_slab``'s union boxes) passes
+    for one of its rays. Equal to ``_slab_cull_ref`` wherever every
+    feasible (ray, block) lies in a group that passes for the ray: the
+    premise the tests and chip_smoke.py hold. For tests and chip_smoke.py;
+    the main path does not call it."""
+    gslab = _group_slab(slab, blk, G)
+    kp = blk.shape[1]
+    return cl._grouped_tile_min(x, x[:, 7] > 0.0, kp, lambda xs: _slab_entry_math(xs, slab, blk, kp),
+                                lambda xs: _group_entry(xs, gslab), tile, G)
+
+
 def slab_cull(x, slab, blk, tile: int):
     """[n/tile, K] tile-min conservative AABB entry bounds (kernel 1)."""
     if x.device.type == "cpu":
@@ -115,7 +188,7 @@ def slab_cull(x, slab, blk, tile: int):
     device = x.device
     n = x.shape[0]
     kp = blk.shape[1]
-    if n % tile or 8 * tile * 4 > MAX_SMEM:
+    if tile <= 0 or n % tile or SLAB_CULL.call_int("slab_cull_smem_bytes", tile) > MAX_SMEM:
         raise ValueError(f"slab_cull: bad tile {tile} for {n} rays")
     check_tensor(x, "x", torch.float32, (n, 16), device)
     check_tensor(slab, "slab", torch.float32, (8, kp), device)
@@ -123,7 +196,7 @@ def slab_cull(x, slab, blk, tile: int):
     out = torch.empty((n // tile, kp), dtype=torch.float32, device=device)
     if n:
         SLAB_CULL.launch(device, x.data_ptr(), slab.data_ptr(), blk.data_ptr(),
-                         out.data_ptr(), n, kp, tile)
+                         out.data_ptr(), n, kp, tile, MAX_SMEM)
     return out
 
 

@@ -41,6 +41,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf as tmxu
 from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import mesh_route, render
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
+from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import CSRC
 from tests.test_cluster import _mesh, _rays
 from tests.test_torch_render import CORNELL, GOLDENS, _mesh_obj
 
@@ -116,6 +117,190 @@ def test_cull_matches_pallas_interpret_bit_for_bit():
     interp = np.asarray(jcl._cull_pallas(jnp.asarray(x), jcm.cull_w, jcm.blk, 256, True))
     got = tcl.cull(_t(x), tcm.cull_w, tcm.blk, 256).numpy()
     np.testing.assert_array_equal(interp, got)
+
+
+@pytest.mark.parametrize("subdiv, block, tile", [(2, 64, 256), (3, 16, 128), (3, 16, 256)])
+def test_cull_grouped_matches_ref_and_pallas_interpret(subdiv, block, tile):
+    """Kernel 9's skip in plain form (``_cull_grouped``: each tile's live
+    rays in warps of 32, a group of 8 blocks tested only where its sphere
+    test passes for one ray of the warp) equals the plain sphere cull bit
+    for bit, on a 5-block and a 128-block table (16 full groups). Against
+    the TPU kernel in interpret mode: bit for bit on the 5-block table
+    (as ``test_cull_matches_pallas_interpret_bit_for_bit``); on the
+    128-block one its feasible pattern, with entries within 1e-6 (XLA's
+    CPU compiler fuses some of the interpret kernel's products there: an
+    ulp of the largest entries here is 9.5e-7)."""
+    _, jcm, tcm = _tables(subdiv, block)
+    x = _x(jcm, 1024, seed=4)
+    source = (CSRC / "cluster_cull.cu").read_text()
+    assert f"constexpr int kGroup = {tcl.CULL_GROUP};" in source  # the kernel's groups
+    got = tcl._cull_grouped(_t(x), tcm.cull_w, tcm.blk, tile)
+    assert torch.equal(got, tcl._cull_ref(_t(x), tcm.cull_w, tcm.blk, tile))
+    assert int((got < 1e30).sum()) > 20
+    interp = np.asarray(jcl._cull_pallas(jnp.asarray(x), jcm.cull_w, jcm.blk, tile, True))
+    if block == 64:
+        np.testing.assert_array_equal(interp, got.numpy())
+    np.testing.assert_array_equal(interp < 1e30, got.numpy() < 1e30)
+    np.testing.assert_allclose(interp, got.numpy(), rtol=0, atol=1e-6)
+
+
+def test_group_sphere_holds_its_members():
+    """``_group_sphere`` over a 37-block table in groups of 8: a ragged last
+    group (5 blocks), an all-sentinel (empty) group, sentinel members among
+    real ones, a member whose r2 exceeds its radius squared. Each sphere
+    holds its real members' (R >= |c - C| + max(radius, sqrt(r2)), in
+    float64), CR >= |C| + R, |C|^2 is summed as the member's cc, and only
+    the empty group is flagged -1."""
+    rng = np.random.default_rng(8)
+    kp, G = 37, 8
+    c = (rng.normal(size=(3, kp)) * 3.0).astype(np.float32)
+    radius = rng.uniform(0.01, 0.5, kp).astype(np.float32)
+    r2 = radius * radius
+    r2[2] = 4.0 * r2[2]  # r2 above radius^2: the sphere takes sqrt(r2)
+    r2[8:16] = -1.0  # group 1: no real member
+    r2[[17, 20, 33]] = -1.0  # sentinels among real members, one in the ragged group
+    c[:, 20] = 1e4  # a far sentinel: left out of its group's sphere
+    blk = np.zeros((8, kp), np.float32)
+    blk[0:3], blk[3], blk[4], blk[5] = c, radius, (c * c).sum(0), r2
+    cull_w = np.zeros((8, 2 * kp), np.float32)
+    cull_w[3:6, :kp], cull_w[0:3, kp:] = c, c
+    gs = tcl._group_sphere(_t(cull_w), _t(blk), G).numpy()
+    assert gs.shape == (8, 5)
+    for g in range(5):
+        ks = [k for k in range(g * G, min(kp, (g + 1) * G)) if r2[k] >= 0]
+        if not ks:
+            assert gs[6, g] == -1.0 and (gs[0:6, g] == 0.0).all()
+            continue
+        cen = gs[0:3, g].astype(np.float64)
+        reach = [np.linalg.norm(c[:, k] - cen) + max(radius[k], np.sqrt(np.float64(r2[k])))
+                 for k in ks]
+        assert gs[3, g] >= max(reach) and gs[3, g] <= max(reach) * (1 + 1e-6)
+        assert gs[5, g] >= np.linalg.norm(cen) + gs[3, g]
+        cf = gs[0:3, g]
+        assert gs[4, g] == np.float32(np.float32(cf[0] * cf[0] + cf[1] * cf[1]) + cf[2] * cf[2])
+        assert gs[6, g] == 1.0
+    np.testing.assert_array_equal(gs[7], 0.0)
+
+
+def _assert_group_sphere_premise(x, cull_w, blk, G=8):
+    """Every (ray, block) with an entry bound below BIG lies in a group
+    whose group test passes for the ray, with an entry no later; ->
+    (feasible pairs, pairs whose group test passes)."""
+    kp = blk.shape[1]
+    member = tcl._entries(x, cull_w, blk)
+    group = tcl._group_sphere_entry(x, tcl._group_sphere(cull_w, blk, G))
+    of_member = group[:, torch.arange(kp) // G]
+    feasible = member < 1e30
+    assert not (feasible & (of_member >= 1e30)).any()
+    assert not (feasible & (of_member > member)).any()
+    return int(feasible.sum()), int((group < 1e30).sum())
+
+
+@pytest.mark.parametrize("route", ["cluster", "binned"])
+def test_group_sphere_premise_on_their_own_inputs(tmp_path, monkeypatch, route):
+    """Kernel 9 runs a group's member tests for a warp only if the group
+    sphere test (``_group_sphere_entry``) passes for one of its rays; the
+    skip is exact if every (ray, block) with an entry bound below BIG lies
+    in a group that passes for the ray (csrc/cluster_entry.cuh argues it
+    in f32). Checked on every ``cull`` call of a depth-2 render of
+    icosphere-3 in the Cornell box (32x32, 2 spp; 64-slot blocks: 20 real
+    and 108 sentinels) on the cluster and on the binned route, where the
+    kernel's skip in plain form (``_cull_grouped``) also equals the plain
+    sphere cull bit for bit."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5), cluster_block=64,
+                           device="cpu"), 32, 32)
+    calls = []
+    real_cull = tcl.cull
+
+    def record(*args):
+        calls.append(args)
+        return real_cull(*args)
+
+    monkeypatch.setattr(tcl, "cull", record)
+    cfg = TCfg(trace_depth=2, cluster_tile=256, cluster_binned=route == "binned", **CLUSTER)
+    assert mesh_route(scene.mesh, scene.cmesh, cfg) == route
+    render(scene, cfg, spp=2, seed=0, device="cpu")
+    assert len(calls) >= 4
+    feasible = met = 0
+    for x, cull_w, blk, tile in calls:
+        assert torch.equal(tcl._cull_grouped(x, cull_w, blk, tile),
+                           tcl._cull_ref(x, cull_w, blk, tile))
+        f, m = _assert_group_sphere_premise(x, cull_w, blk)
+        feasible, met = feasible + f, met + m
+    assert feasible > 1000 and met < (blk.shape[1] // 8) * sum(c[0].shape[0] for c in calls)
+
+
+def _adversarial_rays(cm, kind, n, seed):
+    """[n, 8] records (o d t0 act) of rays aimed at the edge of the group
+    test's guarantees for the table ``cm`` (centred). Each ray takes a
+    group's extremal member k (centre c, radius r: the one whose sphere
+    touches the group's sphere (C, R), at p = c + r u with u = (c - C) /
+    |c - C|; every other ray a random member instead, p then on its far
+    side from C):
+    grazing: lines through p's side of the member's sphere, at distance r
+    (1 +- 1e-6) from c, perpendicular to u, origins 0.01 to 1e3 away;
+    inside / on: origins inside the group's sphere, or on it at p (+-
+    1e-7 r), in random directions; head_on: rays along -u onto p from 0.01
+    to 1e3 away, where the group's entry and the member's are equal but
+    for rounding; away: rays leaving the member's sphere along u from just
+    inside p (t_ca + r from 1e-10 r to 1e-5 r above 0);
+    off_unit: the grazing rays with |d| off 1 by up to 4 ulps. t0 = 1e30."""
+    rng = np.random.default_rng(seed)
+    blk, cull_w = cm.blk.numpy().astype(np.float64), cm.cull_w.numpy().astype(np.float64)
+    kp = blk.shape[1]
+    gs = tcl._group_sphere(cm.cull_w, cm.blk, 8).numpy().astype(np.float64)
+    c_all = cull_w[3:6, :kp].T
+    real = blk[5] >= 0
+    reach = np.where(real, np.linalg.norm(c_all - gs[0:3, np.arange(kp) // 8].T, axis=1)
+                     + blk[3], -1.0)
+    extremal = reach.reshape(-1, 8).argmax(axis=1) + 8 * np.arange(kp // 8)
+    extremal = extremal[real[extremal]]
+    k = np.where(np.arange(n) % 2 == 0, rng.choice(extremal, n), rng.choice(np.flatnonzero(real), n))
+    c, r = c_all[k], blk[3, k][:, None]
+    cen, rad = gs[0:3, k // 8].T, gs[3, k // 8][:, None]
+    u = c - cen
+    u /= np.maximum(np.linalg.norm(u, axis=1, keepdims=True), 1e-30)
+    p = c + r * u
+    d = rng.normal(size=(n, 3))
+    d -= (d * u).sum(1, keepdims=True) * u  # perpendicular to u: tangent at p
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if kind in ("grazing", "off_unit"):
+        dist = 10.0 ** rng.uniform(-2.0, 3.0, (n, 1))
+        o = c + u * r * (1.0 + rng.uniform(-1e-6, 1e-6, (n, 1))) - dist * d
+    elif kind == "inside":
+        w = rng.normal(size=(n, 3))
+        w /= np.linalg.norm(w, axis=1, keepdims=True)
+        o = cen + w * rad * rng.uniform(0.0, 1.0, (n, 1))
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    elif kind == "on":
+        o = p + u * r * rng.uniform(-1e-7, 1e-7, (n, 1))
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    elif kind == "head_on":  # along -u onto p: the member's entry and the group's agree
+        o = p + u * 10.0 ** rng.uniform(-2.0, 3.0, (n, 1)) + rng.normal(size=(n, 3)) * 1e-7 * r
+        d = -u
+    else:  # away: along u from just inside p
+        o = p - u * r * 10.0 ** rng.uniform(-10.0, -5.0, (n, 1))
+        d = u
+    d = d.astype(np.float32)
+    if kind == "off_unit":
+        d = (d * (1.0 + rng.integers(-4, 5, (n, 1)) * 2.0 ** -23)).astype(np.float32)
+    return np.concatenate([o.astype(np.float32), d, np.full((n, 1), 1e30, np.float32),
+                           np.ones((n, 1), np.float32)], axis=1)
+
+
+@pytest.mark.parametrize("kind", ["grazing", "inside", "on", "head_on", "away", "off_unit"])
+def test_group_sphere_premise_on_adversarial_rays(kind):
+    """The group sphere test's margins where they matter (see
+    ``_adversarial_rays``), on the icosphere-3 table with 16-slot blocks
+    (128 blocks, groups of 8): every feasible (ray, block) lies in a group
+    whose test passes, with an entry no later than the block's."""
+    _, _, tcm = _tables(3, 16)
+    x = _t(_adversarial_rays(tcm, kind, 8192, seed=len(kind)))
+    feasible, _ = _assert_group_sphere_premise(x, tcm.cull_w, tcm.blk)
+    assert feasible > 2000
 
 
 def test_cull_tables_match_the_jax_build():

@@ -652,6 +652,35 @@ def test_cluster_cull_kernel_bit_equal(cuda, subdiv, block, tile):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("kernel", ["slab_cull", "cluster_cull"])
+@pytest.mark.parametrize("subdiv, block, n, tile, dead_frac", [
+    (4, 64, 8192, 1024, 0.98),  # a few live rays a tile: idle warps share the groups
+    (4, 64, 2048, 1024, 0.2),   # two tiles (a pass-3 call)
+    (6, 10, 8192, 4096, 0.2),   # 8,192 blocks past one slice's shared memory
+    (5, 8, 3840, 96, 0.5),      # tiles of three warps
+])
+def test_cull_kernels_bit_equal_on_sparse_and_wide_calls(cuda, kernel, subdiv, block, n, tile,
+                                                         dead_frac):
+    """Kernels 1 and 9 bit for bit against their plain versions on the
+    launch shapes their tile-min loop (csrc/tile_cull.cuh) takes apart:
+    few live rays, few tiles, more blocks than one slice holds, tiles that
+    are not a multiple of the thread block; the last tile all dead."""
+    cm = build_cluster_mesh(_mesh(subdiv), block=block, device=cuda)
+    x, *_ = _walk_inputs(cm, n, tile, seed=n + tile, dead_frac=dead_frac)
+    if kernel == "slab_cull":
+        counter, call = twalk.SLAB_CULL, lambda: twalk.slab_cull(x, cm.slab, cm.blk, tile)
+        want = twalk._slab_cull_ref(x, cm.slab, cm.blk, tile)
+    else:
+        x = x[:, :8].contiguous()
+        counter, call = tcl.CULL, lambda: tcl.cull(x, cm.cull_w, cm.blk, tile)
+        want = tcl._cull_ref(x, cm.cull_w, cm.blk, tile)
+    before = counter.launches
+    got = call()
+    assert counter.launches == before + 1
+    assert int((want < 1e30).sum()) > 10 and bool((want[-1] >= 1e30).all())
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("subdiv, block", [(4, 64), (5, 8), (6, 10)])
 def test_argmin_kernel_bit_equal(cuda, subdiv, block):
     """kp from 128 to 8192: more blocks than one staged chunk of 1024;

@@ -149,40 +149,78 @@ def _face_rays(slab, blk):
     return twalk._ray16(o, d, torch.full((n,), 30.0), torch.ones((n,)))
 
 
-@pytest.mark.parametrize("G", [4, 8, 16])
-def test_extract_group_premise_on_its_own_inputs(tmp_path, monkeypatch, G):
-    """The extraction kernel runs a group's member tests for a warp only
-    if the group test (``_group_entry`` on ``_group_slab``'s union boxes)
-    passes for one of its rays. That is exact if every block the exact
-    test passes (a finite ``_slab_entry_math`` entry) lies in a group
-    whose group test passes for the same ray. Checked on every ``extract``
-    call of a depth-2 render of icosphere-3 in the Cornell box (32x32, so
-    1,024 rays a bounce, passes 1 and 2; 64-slot blocks: 20 real blocks
-    and 108 sentinels, so the groups hold sentinel members and some none),
-    the default config, and on axis-parallel rays from block faces."""
-    scene = tparser.with_resolution(
-        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5), cluster_block=64,
-                           device="cpu"), 32, 32)
-    assert mesh_route(scene.mesh, scene.cmesh, TCfg()) == "pairs"
+def _record(monkeypatch, module, name):
+    """Keeps the arguments of every call to ``module.name``."""
     calls = []
-    real_extract = tpairs.extract
+    real = getattr(module, name)
 
     def record(*args, **kwargs):
         calls.append(args)
-        return real_extract(*args, **kwargs)
+        return real(*args, **kwargs)
 
-    monkeypatch.setattr(tpairs, "extract", record)
-    render(scene, TCfg(trace_depth=2), spp=2, seed=0, device="cpu")
-    assert len(calls) == 8 and {c[3] for c in calls} == {TCfg().pair_slots, tpairs.F2}
+    monkeypatch.setattr(module, name, record)
+    return calls
+
+
+# The group premise's routes: kernel 5's calls on the pair path (its ids
+# keep the test's earlier names), kernel 1's on the walk route and on a
+# pass-3 call of the pair path.
+_PREMISE_CASES = ([pytest.param("pairs", G, id=str(G)) for G in (4, 8, 16)]
+                  + [pytest.param(route, G, id=f"{route}-{G}")
+                     for route in ("walk", "pass3") for G in (4, 8, 16)])
+
+
+@pytest.mark.parametrize("route, G", _PREMISE_CASES)
+def test_extract_group_premise_on_its_own_inputs(tmp_path, monkeypatch, route, G):
+    """Kernels 5 (the extraction) and 1 (the slab cull) run a group's
+    member tests for a warp only if the group test (``_group_entry`` on
+    ``_group_slab``'s union boxes) passes for one of its rays. That is exact
+    if every block the exact test passes (a finite ``_slab_entry_math``
+    entry) lies in a group whose group test passes for the same ray.
+    Checked on every ``extract`` call of a depth-2 render of icosphere-3 in
+    the Cornell box (32x32, so 1,024 rays a bounce, passes 1 and 2; 64-slot
+    blocks: 20 real blocks and 108 sentinels, so the groups hold sentinel
+    members and some none), the default config; on every ``slab_cull``
+    call of the same render on the walk route; and on the pass-3 calls of
+    the pair path on grazing rays (a 1,280-block table of 4-triangle
+    blocks, one slot a ray); each with axis-parallel rays from block faces.
+    On kernel 1's calls the kernel's skip in plain form
+    (``_slab_cull_grouped``) also equals the plain slab cull bit for bit."""
+    if route == "pass3":
+        _, _, tcm = _tables(4, 4)
+        calls = _record(monkeypatch, twalk, "slab_cull")
+        o, d = _grazing_rays(1024, seed=1)
+        _, stats = tpairs.intersect_mesh_pairs(
+            _t(o), _t(d), tcm, TCfg(cluster_tile=256, pair_slots=1, **PAIRS),
+            collect_stats=True)
+        assert stats["p3_rounds"] >= 1 and len(calls) == stats["p3_rounds"]
+    else:
+        scene = tparser.with_resolution(
+            tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5),
+                               cluster_block=64, device="cpu"), 32, 32)
+        cfg = TCfg(trace_depth=2) if route == "pairs" else TCfg(
+            trace_depth=2, cluster=True, cluster_walk=True, cluster_pairs=False)
+        assert mesh_route(scene.mesh, scene.cmesh, cfg) == route
+        calls = _record(monkeypatch, tpairs if route == "pairs" else twalk,
+                        "extract" if route == "pairs" else "slab_cull")
+        render(scene, cfg, spp=2, seed=0, device="cpu")
+        if route == "pairs":
+            assert len(calls) == 8 and {c[3] for c in calls} == {TCfg().pair_slots, tpairs.F2}
+        else:
+            assert len(calls) == 4
     slab, blk = calls[0][1], calls[0][2]
+    if route != "pairs":
+        for x, _, _, tile in calls:
+            assert torch.equal(twalk._slab_cull_grouped(x, slab, blk, tile, G),
+                               twalk._slab_cull_ref(x, slab, blk, tile))
     calls.append((_face_rays(slab, blk), slab, blk, 3))
     kp = blk.shape[1]
     group_of = torch.arange(kp) // G
     feasible_faces = culled = 0
     for x, slab, blk, _ in calls:
-        gslab = tpairs._group_slab(slab, blk, G)
+        gslab = twalk._group_slab(slab, blk, G)
         feasible = twalk._slab_entry_math(x, slab, blk, kp) < 1e30
-        meets = tpairs._group_entry(x, gslab) < 1e30
+        meets = twalk._group_entry(x, gslab) < 1e30
         assert not (feasible & ~meets[:, group_of]).any()
         live = x[:, 7] > 0
         culled += int((live[:, None] & (gslab[6] > 0)[None] & ~meets).sum())
@@ -207,7 +245,7 @@ def test_group_slab_is_the_union_of_real_members():
     r2[[17, 20, 33]] = -1.0  # sentinels among real members, one in the ragged group
     blk = np.zeros((8, kp), np.float32)
     blk[5] = r2
-    got = tpairs._group_slab(_t(slab), _t(blk), G).numpy()
+    got = twalk._group_slab(_t(slab), _t(blk), G).numpy()
     assert got.shape == (8, 5)
     for g in range(5):
         ks = [k for k in range(g * G, min(kp, (g + 1) * G)) if r2[k] >= 0]
@@ -251,7 +289,7 @@ def test_extract_group_premise_on_near_misses():
                      _t(np.full(n, 3e4, np.float32)), torch.ones(n))
     sl, bl = _t(slab), _t(blk)
     feasible = twalk._slab_entry_math(x, sl, bl, kp) < 1e30
-    meets = tpairs._group_entry(x, tpairs._group_slab(sl, bl, G)) < 1e30
+    meets = twalk._group_entry(x, twalk._group_slab(sl, bl, G)) < 1e30
     assert int(feasible[torch.arange(n), _t(k)].sum()) > n // 10
     assert not (feasible & ~meets[:, torch.arange(kp) // G]).any()
 

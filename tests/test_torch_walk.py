@@ -30,6 +30,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mes
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import render as trender
 from kdtreepathtraceroptimization_tpu_torch.scene.parser import load_scene, with_resolution
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA as TMesh
+from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import CSRC
 from tests.test_cluster import _mesh, _rays
 from tests.test_torch_render import CORNELL, _mesh_obj
 
@@ -125,6 +126,35 @@ def test_slab_cull_matches_pallas_interpret(tile):
     np.testing.assert_array_equal(interp < 1e30, got < 1e30)
     assert (interp != got).mean() < 0.01
     np.testing.assert_allclose(interp, got, rtol=1e-6, atol=3e-8)
+
+
+@pytest.mark.parametrize("subdiv, block, tile", [(2, 64, 256), (3, 16, 128), (3, 16, 256)])
+def test_slab_cull_grouped_matches_ref_and_pallas_interpret(subdiv, block, tile):
+    """Kernel 1's skip in plain form (``_slab_cull_grouped``: each tile's
+    live rays in warps of 32, a group of ``SLAB_GROUP`` (16) blocks tested
+    only where its union box passes for one ray of the warp) equals the
+    plain slab cull bit for bit; here with dead rays (every 5th, direction
+    zeroed) and t0 bounds from 0.5 to 30, on a 5-block and a 128-block
+    table (8 full groups). The TPU kernel in interpret mode equals the
+    slab cull with XLA's fused products (``_fma_entries``) bit for bit,
+    and the grouped form in its feasible pattern, with entries within 1e-6
+    (the fused rounding after the slab cancellation: an ulp of the largest
+    slab parameters here is 9.5e-7)."""
+    _, jcm, tcm = _tables(subdiv, block)
+    o, d = _rays(1024, seed=6)
+    act = (np.arange(1024) % 5 != 0).astype(np.float32)
+    t0 = np.linspace(0.5, 30.0, 1024).astype(np.float32)
+    x = jwalk._ray16(jnp.asarray(o) - jcm.center_shift, jnp.asarray(d * act[:, None]),
+                     jnp.asarray(t0), jnp.asarray(act))
+    source = (CSRC / "slab_cull.cu").read_text()
+    assert f"constexpr int kGroup = {twalk.SLAB_GROUP};" in source  # the kernel's groups
+    got = twalk._slab_cull_grouped(_t(x), tcm.slab, tcm.blk, tile)
+    want = twalk._slab_cull_ref(_t(x), tcm.slab, tcm.blk, tile)
+    assert torch.equal(got, want) and int((want < 1e30).sum()) > 20
+    interp = np.asarray(jwalk._slab_cull_pallas(x, jcm.slab, jcm.blk, tile, True))
+    np.testing.assert_array_equal(interp, _fma_entries(x, jcm.slab, jcm.blk, tile))
+    np.testing.assert_array_equal(interp < 1e30, got.numpy() < 1e30)
+    np.testing.assert_allclose(interp, got.numpy(), rtol=0, atol=1e-6)
 
 
 def test_full_select_matches_jax():
