@@ -11,9 +11,8 @@ KD walk, brute force) and its gradient path on Cornell + an
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernels' build (time, registers, spills and shared memory per
-   kernel); ``[sass]``: kernels 5 and 12 with the SASS digests of
-   SASS_DIGESTS (their code is shared with kernels 1 and 9 and must not
-   change);
+   kernel); ``[sass]``: kernel 5 with the SASS digest of SASS_DIGESTS
+   (its group math is shared with kernel 1 and must not change);
 2. each kernel against its plain PyTorch version, on the inputs a main
    path hands it at its second bounce: slab cull, walk and gather-to-
    columns from the walk path (the slab cull, kernel 1, bit for bit,
@@ -71,17 +70,17 @@ KD walk, brute force) and its gradient path on Cornell + an
    entry points every tree of the port has, so it can time an earlier
    tree's kernels);
 4b. ``[shapes]``, only with ``--shapes`` (the measurement that chose the
-   launch-shape constants of kernels 2, 8, 10, 7, 6, 5, 1 and 9;
+   launch-shape constants of kernels 2, 8, 10, 7, 6, 5, 1, 9 and 12;
    ``--shapes slab_cull,cluster_cull`` times only those): the walk, the
-   brute force, the rounds, kernels 7, 6, 5, 1 and 9 built with other
+   brute force, the rounds, kernels 7, 6, 5, 1, 9 and 12 built with other
    launch shapes (rays a thread, threads, thread blocks an SM holds; for
    the walk and the rounds, the triangle loop's unroll; for kernel 6, the
-   rounds above which a part reads its weights directly; for kernels 5, 1
-   and 9, their blocks a group;
+   rounds above which a part reads its weights directly; for kernels 5, 1,
+   9 and 12, their blocks a group;
    for kernel 5, its split form's lanes a ray) and timed on
    the same inputs (kernel 6 also on pass 2's call and bounce 0's
    heaviest launch, kernel 5 on pass 2's and in its split form on pass
-   1's, kernel 1 on pass 3's, kernel 9 on the binned path's), each equal
+   1's, kernel 1 on pass 3's, kernel 9 and 12 on the binned path's), each equal
    to the sources' own shape bit for bit;
 5. golden parity: ``cornell_64``, ``cornell_spec_64`` (every pixel but
    the ten its jit render branched), ``mesh_pairs_48`` in its own (pair)
@@ -123,7 +122,16 @@ KD walk, brute force) and its gradient path on Cornell + an
    vertex and normal gradients finite and not all zero;
 9. ``[gradcheck]``: the JAX package's two finite-difference checks of the
    pair path (tests/test_grad.py:244-264 and 275-310) on the card, at the
-   ``mesh_pairs_48`` scene.
+   ``mesh_pairs_48`` scene;
+10. ``[edgegrad]``: one forward and one backward of ``make_render_geo``
+   (``ops/edgegrad.py``) on the KD walk's 320-triangle scene at 800x800,
+   depth 8, with the icosphere subsurface, 4 samples an edge and 256
+   secondary viewpoints, under a column-ramp-weighted mean: forward,
+   interior-backward and boundary ms, peak memory, silhouette edges and
+   alive samples of both boundary terms and the launches (kernels 3 and 4
+   must launch; the gradients finite, the boundary part non-zero); then
+   tests/test_edgegrad.py's occluder check (vertex, 32x32, finite
+   differences at 8 x 8 supersampling, within 0.25).
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -157,6 +165,7 @@ from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
 from kdtreepathtraceroptimization_tpu_torch.convert import materials_to_torch, with_tris
 from kdtreepathtraceroptimization_tpu_torch.ops import binned as tbinned
 from kdtreepathtraceroptimization_tpu_torch.ops import cluster as tcl
+from kdtreepathtraceroptimization_tpu_torch.ops import edgegrad as tedge
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf as tmxu
 from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
@@ -243,13 +252,14 @@ CULL_OPS_PER_PAIR = 5 + 5 + 1 + 5 + 2 + 5 + 1
 # operations, once a ray) are left out.
 CULL_OPS_PER_GROUP = 10 + 1 + 5 + 1 + 2 + 1 + 1 + 3 + 1 + 3 + 1 + 1
 # The SASS digests (sass_digest) of kernels this tree must build as commit
-# 2e5ed33 (before kernels 1 and 9 took their shared headers) did, taken
-# from that commit's sources built with cuda_build.NVCC_FLAGS by
-# the nvcc of SASS_NVCC on the H100 machine: kernel 5, whose group math
-# moved into csrc/slab_group.cuh, and kernel 12, whose header
-# (csrc/cluster_entry.cuh) gained the group sphere. A change that alters
-# one of them on purpose records its new digest here.
-SASS_DIGESTS = {"pair_extract": "0deace8772a58502", "binned_argmin": "c4ebffb3dcaf9a09"}
+# 2e5ed33 (before kernel 1 took kernel 5's group math) did, taken from that
+# commit's sources built with cuda_build.NVCC_FLAGS by the nvcc of
+# SASS_NVCC on the H100 machine: kernel 5, whose group math moved into
+# csrc/slab_group.cuh. A change that alters it on purpose records its new
+# digest here. (Kernel 12's digest went when kernel 12 took the group
+# spheres of csrc/cluster_entry.cuh itself: its check against its plain
+# version, bit for bit, with the group premise, holds it.)
+SASS_DIGESTS = {"pair_extract": "0deace8772a58502"}
 SASS_NVCC = "release 12.9, V12.9.86"
 # A main path whose first iteration takes longer than this (ms) is timed
 # as one call of one iteration.
@@ -309,7 +319,7 @@ BRUTE_EXTRA = ("path_inputs_ms",)
 # also its other form on each call).
 PAIR_EXTRA = ("pass2_ms", "pass2_plain_ms", "pass2_bound_ms", "pass2_bound_by",
               "pass2_flat_bound_ms", "pass2_one_lane_ms", "split_ms")
-# The records of kernels 5, 1 and 9, whose bound (group_bound) counts the
+# The records of kernels 5, 1, 9 and 12, whose bound (group_bound) counts the
 # (ray, block or group) tests their groups need, also give those tests (on
 # kernel 5's pass-1 call) and the flat bound, every live ray x every real
 # block.
@@ -322,13 +332,14 @@ CULL_EXTRA = ("pass3_ms", "pass3_bound_ms", "binned_ms", "binned_bound_ms", "clu
               "cluster_r4_bound_ms")
 # Each main path's image and its iteration count (phase_main_path).
 IMAGES = {}
-# Launch shapes [shapes] times for kernels 2, 8, 10, 7, 6, 5, 1 and 9: the values
+# Launch shapes [shapes] times for kernels 2, 8, 10, 7, 6, 5, 1, 9 and 12: the values
 # of each source's SHAPE_CONSTANTS (rays a thread, threads a thread block,
 # thread blocks an SM must hold under __launch_bounds__; kernels 7 and 6
 # take one pair a thread, and size their weight slots for their blocks an
 # SM; kernel 6's rounds above which a part reads its weights directly, 0
 # for never; kernel 5's blocks a group and lanes a ray in its split form;
-# the culls' threads a thread block and blocks a group); the first is the
+# the culls' and the argmin bins' threads a thread block and blocks a
+# group); the first is the
 # source's own. The brute force's ray tile is rays a thread x threads.
 SHAPES = {"walk": ((1, 128, 6, 0), (1, 128, 6, 4), (1, 128, 6, 8), (1, 256, 4, 4),
                    (4, 256, 2, 0), (2, 256, 2, 0), (2, 256, 3, 0), (4, 128, 4, 0), (8, 128, 2, 0),
@@ -344,7 +355,9 @@ SHAPES = {"walk": ((1, 128, 6, 0), (1, 128, 6, 4), (1, 128, 6, 8), (1, 256, 4, 4
           "pair_extract": ((128, 1, 8, 4), (128, 1, 8, 2), (128, 1, 8, 8), (128, 1, 4, 4),
                            (128, 1, 16, 4), (128, 2, 8, 4), (256, 1, 8, 4)),
           "slab_cull": ((1024, 16), (1024, 8), (1024, 32), (512, 16), (256, 8)),
-          "cluster_cull": ((1024, 8), (1024, 16), (1024, 4), (512, 8), (256, 8))}
+          "cluster_cull": ((1024, 8), (1024, 16), (1024, 4), (512, 8), (256, 8)),
+          "binned_argmin": ((128, 8), (64, 8), (256, 8), (512, 8), (1024, 8), (128, 4),
+                            (128, 16))}
 # The constants SHAPES sets in each source, in order (kUnroll: the triangle
 # loop's unroll, 0 leaving it to the compiler).
 SHAPE_CONSTANTS = {"walk": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
@@ -354,7 +367,8 @@ SHAPE_CONSTANTS = {"walk": ("kRpt", "kThreads", "kMinBlocks", "kUnroll"),
                    "pair_runs": ("kThreads", "kMinBlocks", "kDirectRounds"),
                    "pair_extract": ("kThreads", "kRpt", "kGroup", "kSplitLanes"),
                    "slab_cull": ("kThreads", "kGroup"),
-                   "cluster_cull": ("kThreads", "kGroup")}
+                   "cluster_cull": ("kThreads", "kGroup"),
+                   "binned_argmin": ("kThreads", "kGroup")}
 # The brute force's triangle blocks [shapes] also times (the wrapper's
 # default is 512).
 BRUTE_TRI_BLOCKS = (256, 1024)
@@ -369,9 +383,17 @@ BDIAG_PART = 256
 WALK_OWN_LOOP_MS = (3.767, 3.761)
 # The cluster table's triangle tables that the gradient phases differentiate.
 TRI_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2")
-# The subsurface transmittance [geomgrad] gives the icosphere's material
-# (tests/test_grad.py's CAMERA_SSS_SCENE material 1).
+# The subsurface transmittance [geomgrad] and [edgegrad] give the
+# icosphere's material (tests/test_grad.py's CAMERA_SSS_SCENE material 1).
 SSS_TRANSMITTANCE = (0.9, 0.7, 0.5)
+# [edgegrad]: samples an edge, and the secondary term's viewpoints.
+EDGE_SAMPLES = 4
+EDGE_VIEWPOINTS = 256
+# [edgegrad]'s occluder check (tests/test_edgegrad.py:192, vertex): the
+# dark triangle in front of the back wall, its resolution, the finite
+# differences' supersampling and step, the estimator's samples an edge.
+OCCLUDER = ((-1.5, 3.8, 2.0), (1.5, 4.2, 2.0), (0.0, 6.2, 2.0))
+OCCLUDER_RES, OCCLUDER_SS, OCCLUDER_EPS, OCCLUDER_SAMPLES = 32, 8, 0.08, 64
 
 
 def log(*args):
@@ -565,7 +587,7 @@ def bound(nbytes: float, ops: float) -> dict:
 
 
 def group_bound(nbytes: float, grouped_ops: float, flat_ops: float) -> tuple:
-    """The bound of kernels 5, 1 and 9, whose skip by groups of blocks is
+    """The bound of kernels 5, 1, 9 and 12, whose skip by groups of blocks is
     exact: the lesser of the bounds of the tests their groups need
     (``grouped_ops``) and of every live ray x every real block
     (``flat_ops``), since the function may be computed either way. ->
@@ -714,12 +736,11 @@ def nvcc_release() -> str:
 
 
 def phase_sass() -> None:
-    """Kernels 5 and 12 (SASS_DIGESTS) as this tree builds them against
-    their SASS as commit 2e5ed33 built them: kernel 5's group math moved
-    into csrc/slab_group.cuh and kernel 12's header gained the group
-    sphere since, and neither kernel's code may change. The digests hold
-    for the nvcc they were taken with (SASS_NVCC): under another the run
-    fails, so that a new toolchain's digests are recorded on purpose."""
+    """Kernel 5 (SASS_DIGESTS) as this tree builds it against its SASS as
+    commit 2e5ed33 built it: its group math moved into
+    csrc/slab_group.cuh since, and its code may not change. The digest
+    holds for the nvcc it was taken with (SASS_NVCC): under another the
+    run fails, so that a new toolchain's digest is recorded on purpose."""
     release = nvcc_release()
     if release != SASS_NVCC:
         raise AssertionError(f"[sass] nvcc {release}: SASS_DIGESTS are of nvcc {SASS_NVCC}; "
@@ -1173,13 +1194,14 @@ def swapped(module, name: str, value):
 
 
 def phase_shapes(own_logs: dict, names) -> None:
-    """Kernels 2, 8, 10, 7, 6, 5, 1 and 9 (or those of ``names``) in each of
+    """Kernels 2, 8, 10, 7, 6, 5, 1, 9 and 12 (or those of ``names``) in each of
     SHAPES, on the recorded calls of phase_kernels (the walk path's bounce
     1), phase_pairs (the brute force's full bounce; kernels 5 and 6 on the
     pair path's bounce-1 pass-1 and pass-2 calls, kernel 5 also in its
     split form on pass 1's; kernel 1 on pass 3's call where one fires),
     phase_launches (kernel 6's heaviest launch at bounce 0), phase_cluster
-    (the cluster and binned paths' bounce 1) and phase_bdiag: device ms and registers, and the outputs
+    (the cluster and binned paths' bounce 1; kernel 12 the binned path's)
+    and phase_bdiag: device ms and registers, and the outputs
     equal to the sources' own shape's bit for bit (a ray's or a pair's
     result does not depend on the shape). The brute force also at other
     triangle blocks."""
@@ -1221,6 +1243,8 @@ def phase_shapes(own_logs: dict, names) -> None:
         "cluster_cull": (tcl, "CULL", {
             "cluster path": on(tcl.cull, "cluster_cull"),
             "binned path": on(tcl.cull, "cluster_cull binned")}),
+        "binned_argmin": (tbinned, "ARGMIN",
+                          {"binned path": on(tbinned.argmin_bins, "binned_argmin")}),
     }
     for name, shapes in SHAPES.items():
         if name not in names:
@@ -1415,8 +1439,78 @@ def check_sweep(args, label) -> dict:
     return res
 
 
+def argmin_groups(label, x, cull_w, blk, G: int, threads: int) -> dict:
+    """Kernel 12's skip on one call, in groups of G blocks: the premise,
+    that every feasible (ray, block) lies in a group whose widened entry
+    (``_group_sphere_entry``) is below BIG and no later than the block's
+    entry, so the winning block's group too (a pair outside fails the
+    run), and the tests the kernel runs. A live ray tests every non-empty
+    group, in index order, and the real members of a group whose entry
+    lies below its best entry so far; a thread block takes ``threads``
+    rays, its live ones in order, 32 to a warp, and a warp runs a group's
+    members where one of its rays needs them. ->
+    dict(group_tests: live rays x non-empty groups, member_tests: each
+    live ray's own, lane_tests: the same for all 32 lanes of a warp that
+    runs them, met_mean and met_max: groups a warp runs, groups: non-empty
+    groups, meeting: live rays a group passes for, winners: rays with a
+    feasible block)."""
+    kp = blk.shape[1]
+    ng = -(-kp // G)
+    members = torch.zeros((ng * G,), dtype=torch.float32, device=x.device)
+    members[:kp] = (blk[5] >= 0).float()
+    members = members.reshape(ng, G).sum(dim=1)  # real members a group
+    gsph = tcl._group_sphere(cull_w, blk, G)
+    group_of = torch.arange(kp, device=x.device) // G
+    live = x[:, 7] > 0
+    rows = max(threads, 65536 // threads * threads)
+    bad = member_tests = lane_tests = winners = meeting = 0
+    met = []
+    for r0 in range(0, x.shape[0], rows):
+        xs, ls = x[r0:r0 + rows], live[r0:r0 + rows]
+        r = xs.shape[0]
+        entry = tcl._entries(xs, cull_w, blk)
+        gentry = tcl._group_sphere_entry(xs, gsph)
+        of = gentry[:, group_of]
+        feasible = entry < BIG
+        bad += int((feasible & ((of >= BIG) | (of > entry))).sum())
+        winners += int(feasible.any(dim=1).sum())
+        # a ray's best before group q: its least member entry over groups < q
+        # (a skipped group's members are no better, so the kernel's best)
+        padded = torch.full((r, ng * G), BIG, device=x.device)
+        padded[:, :kp] = entry
+        gmin = padded.reshape(r, ng, G).amin(dim=2)
+        before = torch.cat([torch.full((r, 1), BIG, device=x.device),
+                            torch.cummin(gmin, dim=1).values[:, :-1]], dim=1)
+        need = (gentry < before) & ls[:, None]
+        member_tests += int((need.float() @ members).sum())
+        meeting += int((ls & (gentry < BIG).any(dim=1)).sum())
+        fill = -r % threads  # the last thread block's rays past n
+        if fill:
+            ls = torch.cat([ls, ls.new_zeros((fill,))])
+            need = torch.cat([need, need.new_zeros((fill, ng))])
+        slot, wmet = tcl._warp_meets(ls, need, threads)
+        wmet = (wmet > 0).float()
+        wlive = torch.bincount(slot[ls], minlength=wmet.shape[0]).float()
+        lane_tests += int(((wmet @ members) * 32 * (wlive > 0)).sum())
+        met.append(wmet.sum(dim=1)[wlive > 0])
+    if bad:
+        raise AssertionError(f"binned_argmin {label}: {bad} feasible (ray, block) pairs lie in a "
+                             f"group of {G} whose entry is BIG or later than theirs")
+    met = torch.cat(met)
+    groups = int((members > 0).sum())
+    return dict(group_tests=int(live.sum()) * groups, member_tests=member_tests,
+                lane_tests=lane_tests, met_mean=met.mean().item() if met.numel() else 0.0,
+                met_max=int(met.max()) if met.numel() else 0, groups=groups, winners=winners,
+                meeting=meeting)
+
+
 def check_argmin(args) -> dict:
-    """Kernel 12 against its plain version: bit for bit."""
+    """Kernel 12 against its plain version on one recorded call: bit for
+    bit; the group premise on every ray and the tests its skip runs
+    (argmin_groups); its time, its plain version's, and its bound
+    (group_bound: the tests its groups need, or the flat count where that
+    is less), with the flat bound, every live ray x every real block,
+    beside it as ``flat_bound_ms``."""
     x, cull_w, blk = args
     got = tbinned.argmin_bins(x, cull_w, blk)
     want = tbinned._argmin_ref(x, cull_w, blk)
@@ -1424,16 +1518,34 @@ def check_argmin(args) -> dict:
     if not torch.equal(got, want):
         raise AssertionError(f"binned_argmin differs from its plain version on "
                              f"{int((got != want).sum())} rays")
+    threads, G = source_shape("binned_argmin")
+    g = argmin_groups("binned path", x, cull_w, blk, G, threads)
     kp = blk.shape[1]
     k_real = int((blk[5] >= 0).sum())
     live = int((x[:, 7] > 0).sum())
     nbytes = (x.numel() + cull_w.numel() + blk.numel() + got.numel()) * 4
+    flat_tests = live * k_real
+    least, flat = group_bound(nbytes, g["group_tests"] * CULL_OPS_PER_GROUP
+                              + g["member_tests"] * CULL_OPS_PER_PAIR,
+                              flat_tests * CULL_OPS_PER_PAIR)
     res = dict(max_abs_err=0.0, ms=time_ms(lambda: tbinned.argmin_bins(x, cull_w, blk), 20),
                plain_ms=time_ms(lambda: tbinned._argmin_ref(x, cull_w, blk), 3),
-               library_ms=None, **bound(nbytes, live * k_real * CULL_OPS_PER_PAIR),
-               shape=f"x [{x.shape[0]},8] ({live} live), kp {kp} ({k_real} real); "
-                     f"{int((want < kp).sum())} rays with a feasible block")
-    log(f"[kernels] binned_argmin == plain bit for bit; {res['shape']}")
+               library_ms=None, **least, flat_bound_ms=flat["bound_ms"],
+               tests_run=g["group_tests"] + g["member_tests"],
+               shape=f"x [{x.shape[0]},8] ({live} live), kp {kp} ({k_real} real, "
+                     f"{g['groups']} non-empty groups of {G}); {int((want < kp).sum())} rays "
+                     f"with a feasible block")
+    log(f"[kernels] binned_argmin == plain bit for bit; {res['shape']}; the group premise holds "
+        f"on all {x.shape[0]} rays (the {g['winners']} winning blocks among them)")
+    log(f"[kernels] binned_argmin: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), flat bound "
+        f"{flat['bound_ms']:.4f} ms ({flat['bound_by']}, every live ray x every real block: "
+        f"{flat_tests} tests)")
+    log(f"[kernels] binned_argmin, groups of {G}, {threads} threads: {g['group_tests']} group "
+        f"tests + {g['member_tests']} member tests = {res['tests_run']} ray tests "
+        f"({g['lane_tests']} member tests counting every lane of a warp that runs them) against "
+        f"{flat_tests} flat; groups run per warp: mean {g['met_mean']:.2f}, max {g['met_max']} "
+        f"of {g['groups']}; {g['meeting']} live rays meet a group")
     return res
 
 
@@ -1477,6 +1589,7 @@ def phase_cluster(scene, device) -> dict:
     log(f"[cluster] binned (32 rounds), bounce 1: {stats}")
     brute_check("[cluster] binned (32)", hit, args, kwargs)
     results["binned_argmin"] = check_argmin(ra.args)
+    SHAPE_INPUTS["binned_argmin"] = ra.args
     SHAPE_INPUTS["cluster_cull binned"] = rbc.args
     for key, label, rec in (("binned", "binned path", rbc),
                             ("cluster_r4", "cluster and cluster_r4 paths, bounce 0", r0c)):
@@ -1994,12 +2107,7 @@ def phase_geomgrad(scene, device):
     config = RenderConfig(trace_depth=8, antialias=True, enable_sss=True)
     res = int(scene.camera.resolution[0])
     n = res * res
-    mesh_mats = np.unique(scene.mesh.material_id.cpu().numpy())
-    if mesh_mats.size != 1:
-        raise AssertionError(f"the icosphere has materials {mesh_mats}, expected one")
-    trans = np.array(scene.materials.transmittance)
-    trans[int(mesh_mats[0])] = SSS_TRANSMITTANCE
-    true_scene = scene._replace(materials=scene.materials._replace(transmittance=trans))
+    true_scene, mesh_mat = with_sss(scene)
     target = render(true_scene, config, spp=1, seed=1, device=device).reshape(n, 3)
     mats = materials_to_torch(true_scene.materials, device, requires_grad=True)
     with torch.no_grad():
@@ -2041,7 +2149,7 @@ def phase_geomgrad(scene, device):
         cm, leaves = leaf_tris(scene.cmesh)
         hit = tint.intersect_scene(rays.origin, rays.direction, scene.geoms, scene.mesh,
                                    config, cmesh=cm)
-        on_mesh = hit.material_id == int(mesh_mats[0])
+        on_mesh = hit.material_id == mesh_mat
         torch.autograd.grad(torch.where(on_mesh & (hit.t < BIG), hit.t, 0.0).sum(), leaves,
                             allow_unused=True)
     ct, tri, _ = rec2.args
@@ -2105,10 +2213,162 @@ def phase_gradcheck(device) -> None:
         raise AssertionError("[gradcheck] vertex gradients differ from finite differences")
 
 
+def with_sss(scene):
+    """``scene`` with SSS_TRANSMITTANCE on its mesh's one material."""
+    mesh_mats = np.unique(scene.mesh.material_id.cpu().numpy())
+    if mesh_mats.size != 1:
+        raise AssertionError(f"the mesh has materials {mesh_mats}, expected one")
+    trans = np.array(scene.materials.transmittance)
+    trans[int(mesh_mats[0])] = SSS_TRANSMITTANCE
+    materials = scene.materials._replace(transmittance=trans)
+    return scene._replace(materials=materials), int(mesh_mats[0])
+
+
+def source_verts(mesh, faces) -> torch.Tensor:
+    """The [V, 3] vertex table whose ``faces`` give ``mesh``'s triangles
+    (the loaded OBJ's own values, bit for bit)."""
+    f = torch.as_tensor(faces, device=mesh.v0.device).long()
+    verts = torch.zeros((int(f.max()) + 1, 3), device=mesh.v0.device)
+    for c, v in enumerate((mesh.v0, mesh.v1, mesh.v2)):
+        verts[f[:, c]] = v
+    if not all(torch.equal(verts[f[:, c]], v) for c, v in enumerate((mesh.v0, mesh.v1, mesh.v2))):
+        raise AssertionError("the mesh's triangles do not share the faces' vertices")
+    return verts
+
+
+def primal_render(scene, config, verts, faces):
+    """One iteration of ``scene`` (key 0, iteration 1) on the KD table
+    ``edgegrad.retris`` builds from ``verts``, without a graph."""
+    device = verts.device
+    f = torch.as_tensor(faces, device=device).long()
+    mats = materials_to_torch(scene.materials, device)
+    with torch.no_grad():
+        rays = generate_rays(scene.camera, config, bounce_key(prng_key(0), 1, 0),
+                             config.effective_depth, device)
+        mesh_t = scene.mesh._replace(v0=verts[f[:, 0]], v1=verts[f[:, 1]], v2=verts[f[:, 2]])
+        return tint.trace_rays(rays, scene.geoms, mats, mesh_t, config, prng_key(0), 1,
+                               kd=tedge.retris(scene.kd, verts, f))
+
+
+def phase_edgegrad(small, device) -> dict:
+    """``make_render_geo`` on the kd path's scene (Cornell + icosphere(2),
+    320 triangles, 800x800, depth 8, AA on), with the icosphere subsurface
+    so that the interior gradient reaches the geometry (and kernel 4
+    launches in its reverse pass), EDGE_SAMPLES samples an edge and the
+    secondary term from EDGE_VIEWPOINTS viewpoints: one forward and one
+    backward of the mean of the image weighted by a column ramp (under a
+    plain mean the camera's gradient is about 0). Logs the forward, the
+    interior backward and the boundary terms' ms, peak memory, the
+    silhouette edges and alive samples of both terms and the launches;
+    kernels 3 and 4 must launch, the gradients be finite and the boundary
+    part non-zero. Then tests/test_edgegrad.py's occluder check (vertex)
+    on the card: the two largest vertex components of the boundary
+    gradient at 32x32 within 0.25 of finite differences of an 8 x 8
+    supersampled render. Returns the launch counts of the 800x800 pass."""
+    config = RenderConfig(trace_depth=8, antialias=True, enable_sss=True)
+    scene, _ = with_sss(small)
+    res = int(scene.camera.resolution[0])
+    faces = icosphere(2, radius=2.5, center=(0.0, 3.0, 0.0))[1]
+    verts0 = source_verts(scene.mesh, faces)
+    terms, term_ms = {}, {}
+
+    def timed_term(name, fn):
+        """``fn`` with its stats and device-synchronised time kept."""
+        def wrapped(*args, **kwargs):
+            out, ms = timed(lambda: fn(*args, **kwargs, collect_stats=True), device)
+            terms[name], term_ms[name] = out, ms
+            return out[0] if len(out) == 2 else out[:2]
+        return wrapped
+
+    rg = tedge.make_render_geo(scene, verts0, faces, config, samples_per_edge=EDGE_SAMPLES,
+                               secondary_viewpoints=EDGE_VIEWPOINTS, device=device)
+    ramp = (torch.arange(res * res, device=device) % res).to(torch.float32)[:, None] / res
+    verts = verts0.clone().requires_grad_(True)
+    cam = torch.tensor(np.asarray(scene.camera.position, np.float32), device=device,
+                       requires_grad=True)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    with swapped(tedge, "boundary_image_grad", timed_term("primary", tedge.boundary_image_grad)), \
+            swapped(tedge, "boundary_secondary_grad",
+                    timed_term("secondary", tedge.boundary_secondary_grad)):
+        img, ms_f = timed(lambda: rg(verts, cam, prng_key(0), 1), device)
+        loss = torch.mean(img * ramp)
+        (g_verts, g_cam), ms_b = timed(lambda: torch.autograd.grad(loss, (verts, cam)), device)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    d_prim_v, d_prim_c, st1 = terms["primary"]
+    d_sec_v, st2 = terms["secondary"]
+    boundary_ms = term_ms["primary"] + term_ms["secondary"]
+    log(f"[edgegrad] {res}x{res}, depth 8, SSS on the icosphere, {int(faces.shape[0])} triangles, "
+        f"{len(tedge.build_edges(faces).va)} edges, {EDGE_SAMPLES} samples an edge, "
+        f"{EDGE_VIEWPOINTS} viewpoints: loss {loss.item():.6g}; forward {ms_f:.2f} ms, backward "
+        f"{ms_b:.2f} ms (interior {ms_b - boundary_ms:.2f} ms, boundary {boundary_ms:.2f} ms: "
+        f"primary {term_ms['primary']:.2f}, secondary {term_ms['secondary']:.2f}), peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    log(f"[edgegrad] primary: {int(st1['silhouette'].sum())} silhouette edges, "
+        f"{int(st1['framed'].sum())} samples on screen, {int(st1['alive'].sum())} alive, "
+        f"{st1['probe_rays']} probe rays; secondary: {int(st2['diffuse'].sum())} diffuse "
+        f"viewpoints, {int(st2['silhouette'].sum())} (viewpoint, silhouette edge) pairs, "
+        f"{int(st2['framed'].sum())} samples above the horizon, {int(st2['alive'].sum())} alive, "
+        f"{st2['probe_rays']} probe rays")
+    log(f"[edgegrad] launches: {launches}")
+    boundary_v, boundary_c = d_prim_v + d_sec_v, d_prim_c
+    log(f"[edgegrad] d loss / d verts: max |g| {g_verts.abs().max().item():.4g} (boundary "
+        f"{boundary_v.abs().max().item():.4g}, secondary {d_sec_v.abs().max().item():.4g}); "
+        f"d loss / d cam_pos {[round(v, 8) for v in g_cam.tolist()]} (boundary "
+        f"{[round(v, 8) for v in boundary_c.tolist()]})")
+    missing = [k for k in ("gather_cols", "scatter_cols") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[edgegrad] {missing} not launched: {launches}")
+    if not (torch.isfinite(g_verts).all() and torch.isfinite(g_cam).all()):
+        raise AssertionError("[edgegrad] a gradient is not finite")
+    if not (boundary_v.abs().max().item() > 0 and boundary_c.abs().max().item() > 0):
+        raise AssertionError("[edgegrad] the boundary term is zero")
+
+    # the occluder check
+    t = time.perf_counter()
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "occluder.obj")
+    with open(path, "w") as f:
+        f.writelines(f"v {x} {y} {z}\n" for x, y, z in OCCLUDER)
+        f.write("f 1 2 3\n")
+    occ = load_scene(CORNELL, obj_path=path, device=device)
+    color = np.array(occ.materials.color)
+    color[-1] = (0.02, 0.02, 0.02)  # dark against the white back wall
+    occ = occ._replace(materials=occ.materials._replace(color=color))
+    lo = with_resolution(occ, OCCLUDER_RES, OCCLUDER_RES)
+    hi = with_resolution(occ, OCCLUDER_RES * OCCLUDER_SS, OCCLUDER_RES * OCCLUDER_SS)
+    ofaces = np.array([[0, 1, 2]], np.int32)
+    ocfg = RenderConfig(trace_depth=1, antialias=False)
+    overts = source_verts(lo.mesh, ofaces)
+    org = tedge.make_render_geo(lo, overts, ofaces, ocfg, samples_per_edge=OCCLUDER_SAMPLES,
+                                device=device)
+    v = overts.clone().requires_grad_(True)
+    ocam = torch.tensor(np.asarray(lo.camera.position, np.float32), device=device)
+    (gv,) = torch.autograd.grad(torch.mean(org(v, ocam, prng_key(0), 1)), v)
+    results = []
+    for idx in gv.abs().flatten().argsort()[-2:].tolist():
+        i, c = divmod(idx, 3)
+        e = torch.zeros_like(overts)
+        e[i, c] = OCCLUDER_EPS
+        fd = (primal_render(hi, ocfg, overts + e, ofaces).mean().item()
+              - primal_render(hi, ocfg, overts - e, ofaces).mean().item()) / (2 * OCCLUDER_EPS)
+        results.append((i, c, gv[i, c].item(), fd))
+    log(f"[edgegrad] occluder, {OCCLUDER_RES}x{OCCLUDER_RES}, {OCCLUDER_SAMPLES} samples an edge, "
+        f"FD at SS {OCCLUDER_SS}, eps {OCCLUDER_EPS} (bound 0.25 of the larger): "
+        + ", ".join(f"vertex[{i},{c}] AD {a:.6g} FD {f:.6g}" for i, c, a, f in results)
+        + f" ({time.perf_counter() - t:.1f} s)")
+    for i, c, ad, fd in results:
+        if not abs(fd - ad) <= 0.25 * max(abs(fd), abs(ad)):
+            raise AssertionError(f"[edgegrad] occluder vertex[{i},{c}]: AD {ad} against FD {fd}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     parser.add_argument("--shapes", nargs="?", const=",".join(SHAPES), default="",
-                        help="also time kernels 2, 8, 10, 7, 6, 5, 1 and 9 (or those named, comma "
+                        help="also time kernels 2, 8, 10, 7, 6, 5, 1, 9 and 12 (or those named, "
+                             "comma "
                              "separated: " + ", ".join(SHAPES) + ") in the other launch "
                              "shapes of SHAPES")
     parser.add_argument("--launches", action="store_true",
@@ -2233,6 +2493,8 @@ def main() -> int:
     results["scatter_cols"], paths["geomgrad"] = phase_geomgrad(scene, device)
     phase_gradcheck(device)
     phase_done("gradients")
+    paths["edgegrad"] = phase_edgegrad(small, device)
+    phase_done("edgegrad")
     unused = [k for k, _, _, _ in KERNELS if not any(p[k] for p in paths.values())]
     if unused:
         raise AssertionError(f"kernels launched on no path: {unused}")

@@ -12,7 +12,9 @@ kernel: ``pair_bdiag``), the fat-row KD walk (the default below that), the
 exact cluster walk, cluster rounds, the binned intersector and the two
 brute forces. It differentiates the render with respect to the material
 table, the camera and the mesh's triangle tables (``models.inverse``:
-``render_loss``, ``make_train_step``). Its twelve kernels, one for each
+``render_loss``, ``make_train_step``), and on the KD route with respect to
+the vertex positions and the camera, visibility edges included
+(``ops.edgegrad.make_render_geo``). Its twelve kernels, one for each
 TPU kernel of the JAX package, are CUDA C++ written for Hopper
 (``csrc/``), each with a plain PyTorch version beside it that runs on CPU
 tensors. Configurations outside the port raise ``NotImplementedError``.

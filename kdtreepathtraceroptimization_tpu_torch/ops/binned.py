@@ -2,12 +2,13 @@
 block.
 
 The JAX package's ``ops/binned.py`` in PyTorch, for one device, with its
-TPU kernel ported to CUDA (``csrc/binned_argmin.cu``). Rays are binned by
-the id of the feasible block of least bounding-sphere entry bound, the
-block an entry-ordered walk visits first: rays that share it walk nearly
-the same lists, so a tile's union of blocks stays near one ray's. Rays
-with no feasible block (dead lanes, rays that miss the mesh) share one
-last bin whose tiles skip every round.
+TPU kernel ported to CUDA (``csrc/binned_argmin.cu``, which skips aligned
+groups of blocks whose bounding sphere cannot beat a ray's best entry).
+Rays are binned by the id of the feasible block of least bounding-sphere
+entry bound, the block an entry-ordered walk visits first: rays that share
+it walk nearly the same lists, so a tile's union of blocks stays near one
+ray's. Rays with no feasible block (dead lanes, rays that miss the mesh)
+share one last bin whose tiles skip every round.
 
 Per call:
 
@@ -43,7 +44,7 @@ from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import CudaKernel, 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-ARGMIN = CudaKernel("binned_argmin", "binned_argmin", [_P, _P, _P, _P, _I, _I])
+ARGMIN = CudaKernel("binned_argmin", "binned_argmin", [_P, _P, _P, _P, _P, _I, _I])
 
 # Lanes of the compacted repair pass (four tiles of 1024); a larger
 # flagged population takes the sweep.
@@ -68,6 +69,36 @@ def _argmin_ref(x, cull_w, blk):
     return torch.cat(out) if out else torch.empty((0,), dtype=torch.int32, device=x.device)
 
 
+def _argmin_grouped(x, cull_w, blk, G: int = cl.CULL_GROUP):
+    """Kernel 12's skip in plain form: per ray, the groups of G blocks in
+    index order, a group's members tested only where the group's widened
+    entry (``cluster._group_sphere_entry`` on ``cluster._group_sphere``'s
+    spheres) lies below the ray's best entry so far, strict ``<`` within
+    and across groups. Equal to ``_argmin_ref`` wherever no feasible block
+    lies in a group whose entry is later than the block's: the premise the
+    tests and chip_smoke.py hold. For tests and chip_smoke.py; the main
+    path does not call it."""
+    n, kp = x.shape[0], blk.shape[1]
+    ng = -(-kp // G)
+    gsph = cl._group_sphere(cull_w, blk, G)
+    rows = max(1, cl._REF_ENTRY_ELEMS // kp)
+    out = []
+    for i in range(0, n, rows):
+        xs = x[i:i + rows]
+        entry = cl._entries(xs, cull_w, blk)
+        group = cl._group_sphere_entry(xs, gsph)
+        best = torch.full((xs.shape[0],), BIG, dtype=torch.float32, device=x.device)
+        bins = torch.full((xs.shape[0],), kp, dtype=torch.int32, device=x.device)
+        for q in range(ng):
+            need = group[:, q] < best
+            m, am = torch.min(torch.where(need[:, None], entry[:, q * G:(q + 1) * G], BIG), dim=1)
+            better = m < best
+            best = torch.where(better, m, best)
+            bins = torch.where(better, (q * G + am).to(torch.int32), bins)
+        out.append(bins)
+    return torch.cat(out) if out else torch.empty((0,), dtype=torch.int32, device=x.device)
+
+
 def argmin_bins(x, cull_w, blk):
     """[n] i32 bin of each [n, 8] ray record ``x`` (o d t0 act): the
     feasible block of least entry bound (the first on ties), else kp
@@ -84,8 +115,12 @@ def argmin_bins(x, cull_w, blk):
     check_tensor(blk, "blk", torch.float32, (8, kp), device)
     bins = torch.empty((n,), dtype=torch.int32, device=device)
     if n:
+        # the group spheres and the block table as float4s, which the
+        # launch's first kernel builds
+        scratch = torch.empty((ARGMIN.call_int("binned_argmin_scratch_floats", kp),),
+                              dtype=torch.float32, device=device)
         ARGMIN.launch(device, x.data_ptr(), cull_w.data_ptr(), blk.data_ptr(),
-                      bins.data_ptr(), n, kp)
+                      scratch.data_ptr(), bins.data_ptr(), n, kp)
     return bins
 
 

@@ -12,6 +12,7 @@ product leaves int64's range.
 
 from __future__ import annotations
 
+import struct
 from typing import Tuple
 
 import torch
@@ -50,6 +51,17 @@ def _threefry2x32(key: Key, x0: int, x1: int) -> Key:
 def fold_in(key: Key, data: int) -> Key:
     """``jax.random.fold_in`` for the threefry PRNG."""
     return _threefry2x32(key, 0, int(data) & _M32)
+
+
+def uniform_scalar(key: Key) -> float:
+    """``jax.random.uniform(key, ())``: one float32 in [0, 1) as a Python
+    float, bit for bit. JAX's threefry bits (partitionable, its default) of
+    a scalar are the xor of the two words threefry-2x32 makes of the
+    counter pair (0, 0); their top 23 bits are the mantissa of a float in
+    [1, 2), less 1 (exact)."""
+    y0, y1 = _threefry2x32(key, 0, 0)
+    bits = ((y0 ^ y1) >> 9) | 0x3F800000
+    return struct.unpack("<f", struct.pack("<I", bits))[0] - 1.0
 
 
 def bounce_key(base_key: Key, iteration, depth) -> Key:

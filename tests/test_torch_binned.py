@@ -32,7 +32,9 @@ from kdtreepathtraceroptimization_tpu_torch.render.integrator import mesh_route,
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
 from tests.test_cluster import _rays
 from tests.test_torch_cluster import (
+    _adversarial_rays,
     _aimed_rays,
+    _assert_group_sphere_premise,
     _assert_hits,
     _check_against_brute,
     _t,
@@ -178,3 +180,99 @@ def test_binned_material_grad_equals_the_pair_route(tmp_path):
         grads.append(torch.autograd.grad(loss, mats.color))
     assert grads[0][0].abs().max() > 0
     torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-6, atol=0)
+
+
+def _ragged_table(kp=45, seed=8):
+    """A synthetic [8, 2kp] / [8, kp] table of kp blocks (not a multiple of
+    8: a ragged last group of 5) whose group 1 has no real member, with
+    sentinels among real members (one in the ragged group) and one block
+    whose r2 exceeds its radius squared; and [1024, 8] records of rays
+    among the blocks, some starting inside several spheres (ties at entry
+    0), every 5th dead."""
+    rng = np.random.default_rng(seed)
+    c = (rng.normal(size=(3, kp)) * 2.0).astype(np.float32)
+    radius = rng.uniform(0.2, 0.9, kp).astype(np.float32)
+    r2 = radius * radius
+    r2[2] = 4.0 * r2[2]
+    r2[8:16] = -1.0
+    r2[[17, 20, kp - 2]] = -1.0
+    blk = np.zeros((8, kp), np.float32)
+    blk[0:3], blk[3], blk[4], blk[5] = c, radius, (c * c).sum(0), r2
+    cull_w = np.zeros((8, 2 * kp), np.float32)
+    cull_w[3:6, :kp], cull_w[0:3, kp:] = c, c
+    n = 1024
+    o = (rng.normal(size=(n, 3)) * 4.0).astype(np.float32)
+    o[: n // 4] = c.T[rng.integers(0, kp, n // 4)]  # at a block's centre: entry 0
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    act = np.arange(n) % 5 != 0
+    t0 = rng.uniform(0.5, 12.0, n)
+    x = np.concatenate([o, d * act[:, None], t0[:, None], act[:, None]], axis=1)
+    return x.astype(np.float32), cull_w, blk
+
+
+@pytest.mark.parametrize("case", ["ties", "ragged"])
+def test_argmin_grouped_matches_ref_and_jax(case):
+    """Kernel 12's skip in plain form (``_argmin_grouped``: groups of 8 in
+    index order, a group's members tested only below the ray's best
+    entry) bit for bit against the plain argmin, the JAX jnp mirror and
+    the JAX TPU kernel in interpret mode: on icosphere-2's table (8 real
+    blocks of 128: 15 groups without a real member) with rays that tie at
+    entry 0, and on a 45-block table with a ragged last group, an empty
+    group and sentinels among real members."""
+    if case == "ties":
+        _, jcm, tcm = _tables(2)
+        x = np.concatenate([_x(jcm, 1024, seed=21), _surface_x(jcm, 1024, seed=22)])
+        cull_w, blk = tcm.cull_w, tcm.blk
+    else:
+        x, cw, bk = _ragged_table()
+        cull_w, blk = _t(cw), _t(bk)
+    kp = blk.shape[1]
+    got = tbn._argmin_grouped(_t(x), cull_w, blk)
+    want = tbn._argmin_ref(_t(x), cull_w, blk)
+    assert 0.1 < (want < kp).float().mean().item() < 0.99
+    assert torch.equal(got, want)
+    jargs = (jnp.asarray(x), jnp.asarray(cull_w.numpy()), jnp.asarray(blk.numpy()))
+    np.testing.assert_array_equal(np.asarray(jbn._argmin_ref(*jargs)), got.numpy())
+    np.testing.assert_array_equal(np.asarray(jbn._argmin_pallas(*jargs, 256, True)),
+                                  got.numpy())
+
+
+def test_argmin_group_premise_on_a_binned_render(tmp_path, monkeypatch):
+    """Every ``argmin_bins`` call of a depth-2 binned render of icosphere-3
+    in the Cornell box (32x32, 2 spp; 64-slot blocks): every feasible
+    (ray, block) lies in a group whose widened entry is no later than the
+    block's (so kernel 12's skip is exact), and the skip in plain form
+    equals the plain argmin bit for bit."""
+    scene = tparser.with_resolution(
+        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 3, 2.5), cluster_block=64,
+                           device="cpu"), 32, 32)
+    calls = []
+    real = tbn.argmin_bins
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(tbn, "argmin_bins", record)
+    cfg = TCfg(trace_depth=2, cluster_tile=256, binned_rounds=4, **BINNED)
+    render(scene, cfg, spp=2, seed=0, device="cpu")
+    assert len(calls) >= 4
+    feasible = 0
+    for x, cull_w, blk in calls:
+        assert torch.equal(tbn._argmin_grouped(x, cull_w, blk), tbn._argmin_ref(x, cull_w, blk))
+        feasible += _assert_group_sphere_premise(x, cull_w, blk)[0]
+    assert feasible > 1000
+
+
+@pytest.mark.parametrize("kind", ["grazing", "inside", "on", "head_on", "away", "off_unit"])
+def test_argmin_grouped_on_adversarial_rays(kind):
+    """Kernel 9's adversarial rays (``_adversarial_rays``: at the edge of
+    the group test's margins) through kernel 12's skip: the plain form
+    equals the plain argmin bit for bit on the icosphere-3 table with
+    16-slot blocks."""
+    _, _, tcm = _tables(3, 16)
+    x = _t(_adversarial_rays(tcm, kind, 8192, seed=len(kind)))
+    want = tbn._argmin_ref(x, tcm.cull_w, tcm.blk)
+    assert (want < tcm.n_blocks).sum() > 1000
+    assert torch.equal(tbn._argmin_grouped(x, tcm.cull_w, tcm.blk), want)

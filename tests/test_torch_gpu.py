@@ -681,18 +681,52 @@ def test_cull_kernels_bit_equal_on_sparse_and_wide_calls(cuda, kernel, subdiv, b
     assert torch.equal(got, want)
 
 
+def _beam_records(cm, n, seed):
+    """[n, 8] records of live rays from one point 8 units out, aimed within
+    0.05 of one point of the sphere: they meet few of the table's groups."""
+    rng = np.random.default_rng(seed)
+    c = np.array([0.3, -0.2, 0.5], np.float32)
+    o = np.broadcast_to(c + np.array([0.0, 0.0, 8.0], np.float32), (n, 3))
+    d = c + np.array([0.0, 0.0, 2.0], np.float32) + rng.normal(size=(n, 3)) * 0.05 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    x = np.concatenate([o, d, np.full((n, 1), 30.0), np.ones((n, 1))], axis=1)
+    x = torch.tensor(x.astype(np.float32), device=cm.blk.device)
+    x[:, 0:3] -= cm.center_shift
+    return x
+
+
+@pytest.mark.parametrize("case", ["mixed", "few_live", "all_dead", "beam"])
 @pytest.mark.parametrize("subdiv, block", [(4, 64), (5, 8), (6, 10)])
-def test_argmin_kernel_bit_equal(cuda, subdiv, block):
-    """kp from 128 to 8192: more blocks than one staged chunk of 1024;
-    3,000 rays, not a multiple of the 256-thread block."""
+def test_argmin_kernel_bit_equal(cuda, subdiv, block, case):
+    """kp from 128 to 8192 (more blocks than one staged chunk of 512);
+    3,000 rays, not a multiple of the thread block: some dead (mixed), 2%
+    live (few_live: most warps of a thread block idle), none live
+    (all_dead: every bin kp, no test), or a narrow beam (beam: most groups
+    met by no ray)."""
     cm = build_cluster_mesh(_mesh(subdiv), block=block, device=cuda)
-    x = _records(cm, 4096, 256, seed=block)[:3000].contiguous()
+    if case == "beam":
+        x = _beam_records(cm, 3000, seed=block)
+    else:
+        dead = {"mixed": 0.2, "few_live": 0.98, "all_dead": 1.0}[case]
+        x, *_ = _walk_inputs(cm, 4096, 256, seed=block, dead_frac=dead)
+        x = x[:3000, :8].contiguous()
     before = tbinned.ARGMIN.launches
     got = tbinned.argmin_bins(x, cm.cull_w, cm.blk)
     want = tbinned._argmin_ref(x, cm.cull_w, cm.blk)
     assert tbinned.ARGMIN.launches == before + 1
-    assert 0.2 < (want < cm.n_blocks).float().mean().item() < 0.99
+    hit = (want < cm.n_blocks).float().mean().item()
+    if case == "all_dead":
+        assert hit == 0.0
+    elif case == "few_live":
+        assert 0.0 < hit < 0.05
+    else:
+        assert 0.2 < hit <= 1.0
+    if case == "beam":
+        gsph = tcl._group_sphere(cm.cull_w, cm.blk, tcl.CULL_GROUP)
+        met = (tcl._group_sphere_entry(x, gsph) < 1e30).any(dim=0)
+        assert int((~met & (gsph[6] > 0)).sum()) >= 2  # real groups no ray meets
     assert torch.equal(got, want)
+    assert torch.equal(tbinned._argmin_grouped(x, cm.cull_w, cm.blk), want)
 
 
 def _round_inputs(cm, n, tile, rounds, seed, with_over=False):
