@@ -6,8 +6,8 @@ Builds the port's twelve CUDA kernels (twelve sources, one for each TPU
 kernel) from ``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and the native KD builder (g++), and drives its mesh render
 paths (pair list with either pair kernel, walk, cluster rounds, binned,
-KD walk, brute force) and its gradient path on Cornell + an
-81,920-triangle icosphere at 800x800:
+KD walks, brute force), its wavefront extras, its command line and its
+gradient path on Cornell + an 81,920-triangle icosphere at 800x800:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
    the kernels' build (time, registers, spills and shared memory per
@@ -93,6 +93,16 @@ KD walk, brute force) and its gradient path on Cornell + an
    source-mesh triangle ids (>= 99.99%) with t within 1e-4 relative (the
    JAX package's KD-vs-brute bound: the walk's Moller-Trumbore and kernel
    8's determinant form round differently at grazing hits);
+5c. ``[kdwalks]``: the other KD walks (the fat-row short-stack walk,
+   packets of 32, and the thin-table skip-link, short-stack and push-down
+   walks) on every ray of the kd path's second bounce (320 triangles) and
+   of the kd_big path's (81,920), against the brute-force kernel as
+   source-mesh ids on >= 99.99% of the rays the step bound did not cut,
+   t within 1e-4 relative (the thin walks on kd_big printed, not held),
+   with ms, steps, host reads, cut lanes and peak memory; then each
+   renders the kd scene at 800x800, depth 8 (3 iterations, or 1 where one
+   takes over 2 s), finite and non-black, with its largest difference
+   from the default walk's image of the same iterations;
 6. the main paths, each with every launch count zeroed just before and
    read just after: the pair path (the default config), the walk, the
    cluster-rounds and the binned paths at depth 8, the pair path with
@@ -108,6 +118,20 @@ KD walk, brute force) and its gradient path on Cornell + an
    call), each with its steps and host reads per bounce. Every kernel
    must launch on some path, and every image must be finite and
    non-black;
+6b. ``[extras]``: on the default pair path at 800x800, depth 8,
+   ``compaction`` and ``material_sort`` (``partial_gather`` off) give the
+   default film bit for bit over iterations 1-2, each with its ms an
+   iteration; the ray cache's iteration 1 is the uncached one bit for bit;
+   ``render_kd_boxes`` on the 81,920-triangle tree (ms, peak memory,
+   finite and non-black);
+6c. ``[cli]``: the port's ``cli.main`` in this process on
+   ``scenes/cornell.txt`` and the icosphere(6) OBJ in a temporary
+   directory, at 800x800, depth 8, AA on: ``--benchmark --hdr`` (its JSON
+   line, its PNG read back), ``--save-every 2`` then ``--resume`` to 4
+   spp (the film equal to an uninterrupted 4-spp film bit for bit),
+   ``--compaction --material-sort``, ``--ray-cache``, the KD route's
+   ``--short-stack`` walk at depth 2, ``--viz-kd`` and ``--print-kd-stats
+   --live 1 --profile DIR``; each run exits 0, with its wall seconds;
 7. ``[train]``: 12 steps of ``make_train_step`` on the pair path at depth
    8 from halved material colours towards the port's render of the true
    ones, with every loss, ms/step, the forward/backward split and peak
@@ -144,6 +168,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -151,6 +176,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -173,6 +199,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import traverse as ttrav
 from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.ops.camera import generate_rays
 from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
+from kdtreepathtraceroptimization_tpu_torch.ops.kdviz import render_kd_boxes
 from kdtreepathtraceroptimization_tpu_torch.ops.rng import bounce_key, prng_key
 from kdtreepathtraceroptimization_tpu_torch.ops.vecmath import v3_to_rows
 from kdtreepathtraceroptimization_tpu_torch.render import integrator as tint
@@ -503,7 +530,10 @@ class RepairStats:
 
         def wrapped(*args, **kwargs):
             hit, stats = self.real(*args, **kwargs, collect_stats=True)
-            self.calls.append(stats)
+            # numbers only: a kept tensor (the KD walks' cut_rays) would
+            # count in the path's peak memory
+            self.calls.append({k: v for k, v in stats.items()
+                               if not isinstance(v, torch.Tensor)})
             return hit
 
         setattr(tint, self.name, wrapped)
@@ -1766,11 +1796,12 @@ def phase_bdiag(scene, device) -> dict:
     return res
 
 
-def phase_kd(scene, device) -> None:
+def phase_kd(scene, device) -> tuple:
     """The KD builds of the main mesh (native and numpy, seconds and
     statistics; their arrays equal), and the KD walk against the
     brute-force kernel on every ray of the cluster_auto=False path's
-    second bounce, as source-mesh triangle ids."""
+    second bounce, as source-mesh triangle ids. Returns that bounce's
+    recorded call (args, kwargs)."""
     mesh = scene.mesh
     host = [getattr(mesh, f).cpu().numpy() for f in ("v0", "v1", "v2", "n0", "n1", "n2",
                                                         "material_id")]
@@ -1815,6 +1846,7 @@ def phase_kd(scene, device) -> None:
         f"beyond 1e-5 (bound 1e-4)")
     if frac < 0.9999 or rel_max > 1e-4:
         raise AssertionError("[kd] the KD walk differs from the brute force on this bounce")
+    return args, kwargs
 
 
 def phase_goldens(device):
@@ -2364,6 +2396,260 @@ def phase_edgegrad(small, device) -> dict:
     return launches
 
 
+# The KD walks of [kdwalks], each held against kernel 8 as [kd] holds the
+# default fat-row skip-link walk: the fat-row short-stack walk (the
+# reference's key L, the command line's --short-stack), packets of 32, and
+# the thin-table walks (fat_rows=False).
+KD_WALKS = {
+    "fatrow_shortstack": dict(short_stack=True),
+    "packet": dict(packet_size=32),
+    "skiplink": dict(fat_rows=False),
+    "shortstack": dict(fat_rows=False, short_stack=True),
+    "pushdown": dict(fat_rows=False, short_stack=True, push_down_restart=True),
+}
+THIN_WALKS = ("skiplink", "shortstack", "pushdown")
+
+
+def check_walk(label: str, walk: str, args, kwargs, mesh, base, device,
+               check: bool = True) -> None:
+    """One KD walk on a recorded bounce call against the brute-force
+    kernel: source-mesh ids on >= 99.99% of the rays the step bound did not
+    cut, t within 1e-4 + 1e-4 |t| where both hit (the JAX package's
+    KD-vs-brute bound, tests/test_kdtree.py: second-bounce rays start 1e-4
+    off a surface, so t can be that small); with its ms, steps, host
+    reads, cut lanes and peak memory, and its t against ``base``, the
+    default walk's hit on the same call. ``check=False`` prints the
+    agreement without holding the walk to it."""
+    origin, direction, kd = args[0], args[1], args[2]
+    t_init, active = kwargs["t_init"], kwargs["active"]
+    config = RenderConfig(**KD_WALKS[walk])
+    torch.cuda.reset_peak_memory_stats(device)
+    (hit, stats), ms = timed(lambda: ttrav.intersect_mesh_kd(
+        origin, direction, kd, config, t_init=t_init, active=active, collect_stats=True), device)
+    peak = torch.cuda.max_memory_allocated(device)
+    # the thin walks take no active: every lane walks, as in the JAX package
+    d = direction if walk in THIN_WALKS else torch.where(active[:, None], direction, 0.0)
+    hb = tmxu.intersect_brute_mxu(origin, d, mesh.v0, mesh.v1, mesh.v2, t_max=t_init)
+    src = torch.where(hit.tri >= 0, kd.tris.orig_index[hit.tri.clamp_min(0).long()], -1)
+    uncut = ~stats["cut_rays"]
+    frac = (src == hb.tri)[uncut].float().mean().item()
+    both = (hb.tri >= 0) & (hit.tri >= 0) & uncut
+    dt = (hit.t - hb.t).abs()[both]
+    over = (dt > 1e-4 + 1e-4 * hb.t.abs()[both]).sum().item()
+    over_rel = (dt > 1e-4 * hb.t.abs()[both]).sum().item()
+    rel = (dt / hb.t.abs()[both].clamp_min(1e-30)).max().item() if dt.numel() else 0.0
+    same = (hit.tri >= 0) & (base.tri >= 0) & active
+    d_base = (hit.t - base.t).abs()[same].max().item() if same.any() else 0.0
+    log(f"[kdwalks] {label} {walk}: {origin.shape[0]} rays x {mesh.v0.shape[0]} triangles, "
+        f"{ms:.1f} ms, {stats['steps']} steps, {stats['host_reads']} host reads, "
+        f"{stats['cut']} {'packets' if walk == 'packet' else 'lanes'} cut "
+        f"({int(stats['cut_rays'].sum())} rays), peak memory {peak / 2**20:.1f} MiB; "
+        f"against kernel 8: {int((hb.tri >= 0).sum())} hits, source ids equal on {frac:.6%} of "
+        f"the uncut rays, max |dt| {dt.max().item() if dt.numel() else 0.0:.3g} (max |dt|/t "
+        f"{rel:.3g}: {over_rel} beyond 1e-4 t), {over} beyond 1e-4 + 1e-4 t; max |dt| "
+        f"against the default walk "
+        f"{d_base:.3g}" + ("" if check else " (not held: printed only)"))
+    if check and (frac < 0.9999 or over):
+        raise AssertionError(f"[kdwalks] the {walk} walk differs from the brute force on "
+                             f"{label}")
+
+
+def render_iterations(scene, config, device, max_iters: int = 3):
+    """Iterations 1.. of ``config`` (key 0) through make_render_block_fn,
+    one a call, stopping after the first that takes more than
+    SLOW_ITERATION_MS -> (films after each iteration, ms of each,
+    launches, peak memory, the KD walk's per-call stats)."""
+    res = int(scene.camera.resolution[0])
+    step = make_render_block_fn(scene, config, 1, device=device)
+    film = torch.zeros((res * res, 3), device=device)
+    films, ms = [], []
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    with RepairStats("intersect_mesh_kd") as stats:
+        for it in range(1, max_iters + 1):
+            film, t = timed(lambda: step(film, prng_key(0), it), device)
+            films.append(film.clone())
+            ms.append(t)
+            if t > SLOW_ITERATION_MS:
+                break
+    return films, ms, read_counts(), torch.cuda.max_memory_allocated(device), stats
+
+
+def phase_kdwalks(small, big_call, mesh, device) -> dict:
+    """Every other KD walk on every ray of the kd path's second bounce
+    (320 triangles) and on the kd_big path's (81,920: the fat-row ones
+    held, the thin ones printed), each against kernel 8; then each renders
+    the kd scene at 800x800, depth 8, beside the default walk's image of
+    the same iterations (3, or 1 where an iteration takes over 2 s)."""
+    calls = (("kd bounce 1", bounce_args(small, RenderConfig(trace_depth=8, antialias=True),
+                                         "intersect_mesh_kd", device), small.mesh),
+             ("kd_big bounce 1", big_call, mesh))
+    for label, (args, kwargs), tris in calls:
+        base, ms = timed(lambda: ttrav.intersect_mesh_kd(*args, **kwargs), device)
+        log(f"[kdwalks] {label}: the default walk (fat-row skip-link) {ms:.1f} ms")
+        for walk in KD_WALKS:
+            check_walk(label, walk, args, kwargs, tris, base, device,
+                       check=label.startswith("kd ") or walk not in THIN_WALKS)
+
+    launches = {}
+    res = int(small.camera.resolution[0])
+    base, _, _, _, _ = render_iterations(small, RenderConfig(trace_depth=8, antialias=True),
+                                         device)
+    for walk, kw in KD_WALKS.items():
+        config = RenderConfig(trace_depth=8, antialias=True, **kw)
+        films, ms, launches[walk], peak, stats = render_iterations(small, config, device)
+        iters = len(films)
+        img, want = films[-1] / iters, base[iters - 1] / iters
+        calls = stats.calls
+        log(f"[kdwalks] render {walk}: {res}x{res}, depth 8, {iters} iterations, ms "
+            f"{', '.join(f'{t:.1f}' for t in ms)} (the first with its warm-up), peak memory "
+            f"{peak / 2**20:.1f} MiB, host reads per iteration "
+            f"{sum(c['host_reads'] for c in calls) / iters:.1f}, lanes cut "
+            f"{sum(c['cut'] for c in calls)}; launches {launches[walk]}")
+        log(f"[kdwalks] render {walk}: {stats.walk_per_bounce(8)}")
+        log(f"[kdwalks] render {walk}: image mean {img.mean().item():.4f}, max |d| against the "
+            f"default walk's {(img - want).abs().max().item():.4g}, mean |d| "
+            f"{(img - want).abs().mean().item():.4g}")
+        if not torch.isfinite(img).all() or not img.mean().item() > 0:
+            raise AssertionError(f"[kdwalks] the {walk} image is not finite or is black")
+        if not launches[walk]["gather_cols"]:
+            raise AssertionError(f"[kdwalks] gather_cols not launched on the {walk} render")
+    return {k: sum(v[k] for v in launches.values()) for k in launches["packet"]}
+
+
+def phase_extras(scene, device) -> dict:
+    """The wavefront extras on the default pair path at 800x800, depth 8:
+    compaction and the material sort (partial_gather off) give the default
+    film bit for bit over iterations 1-2; the ray cache gives iteration
+    1's film; the KD view of the scene's tree."""
+    res = int(scene.camera.resolution[0])
+    key = prng_key(0)
+    films, total = {}, {}
+    for label, kw in (("default", {}), ("compaction", dict(compaction=True)),
+                      ("material_sort", dict(material_sort=True))):
+        step = make_render_block_fn(scene, RenderConfig(trace_depth=8, antialias=True, **kw), 1,
+                                    device=device)
+        zero_counts()
+        film = torch.zeros((res * res, 3), device=device)
+        film, ms1 = timed(lambda: step(film, key, 1), device)
+        first = film.clone()
+        film, ms2 = timed(lambda: step(film, key, 2), device)
+        launches = read_counts()
+        films[label] = (first, film)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[extras] {label}: ms per iteration {ms1:.2f} (iteration 1), {ms2:.2f} "
+            f"(iteration 2); launches {launches}")
+        missing = [k for k in ("pair_extract", "pair_runs", "gather_cols") if not launches[k]]
+        if missing:
+            raise AssertionError(f"[extras] {missing} not launched with {label}")
+    for label in ("compaction", "material_sort"):
+        d = (films[label][1] - films["default"][1]).abs().max().item()
+        log(f"[extras] {label} film against the default's after 2 iterations: max |d| {d:.3g} "
+            f"(bound: bit for bit)")
+        if not torch.equal(films[label][1], films["default"][1]):
+            raise AssertionError(f"[extras] the {label} film differs from the default's")
+
+    step = tint.make_render_fn(scene, RenderConfig(trace_depth=8, antialias=True, ray_cache=True),
+                               seed=0, device=device)
+    film, ms = timed(lambda: step(torch.zeros((res * res, 3), device=device), key, 1), device)
+    d = (film - films["default"][0]).abs().max().item()
+    log(f"[extras] ray_cache: iteration 1 in {ms:.2f} ms (camera rays drawn at build), max |d| "
+        f"against the uncached iteration 1: {d:.3g} (bound: bit for bit)")
+    if not torch.equal(film, films["default"][0]):
+        raise AssertionError("[extras] the ray cache's iteration 1 differs from the uncached one")
+
+    rays = generate_rays(scene.camera, RenderConfig(trace_depth=8, antialias=True),
+                         bounce_key(key, 1, 0), 1, device)
+    render_kd_boxes(rays.origin, rays.direction, scene.kd)  # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    img, ms = timed(lambda: render_kd_boxes(rays.origin, rays.direction, scene.kd), device)
+    log(f"[extras] render_kd_boxes: {res}x{res} rays x {scene.kd.nodes.axis.shape[0]} nodes "
+        f"(chunks of 256): {ms:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB, image mean "
+        f"{img.mean().item():.4f}, {int((img.amax(1) > 0).sum())} rays meet a leaf box")
+    if not torch.isfinite(img).all() or not img.mean().item() > 0:
+        raise AssertionError("[extras] the KD view is not finite or is black")
+    return total
+
+
+def phase_cli(device) -> dict:
+    """The port's command line in this process, on scenes/cornell.txt and
+    the icosphere(6) OBJ in a temporary directory, at 800x800, depth 8,
+    AA on: each run exits 0 (its wall seconds printed); the benchmark's
+    JSON line and its PNG read back; a film checkpointed at 2 iterations
+    and resumed to 4 equals an uninterrupted 4-iteration film bit for bit;
+    the reorderings, the ray cache, the KD route's short-stack walk on
+    81,920 triangles (depth 2), the KD view, the KD statistics, the live
+    preview and a profiler trace."""
+    from kdtreepathtraceroptimization_tpu_torch import cli
+    from kdtreepathtraceroptimization_tpu_torch.utils.image import read_png
+
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        verts, faces = icosphere(6, radius=2.5, center=(0.0, 3.0, 0.0))
+        obj = os.path.join(tmp, "icosphere6.obj")
+        write_obj(obj, verts, faces)
+        base = [CORNELL, obj, "--res", "800", "800", "--depth", "8", "--aa"]
+
+        def run(label, sub, extra):
+            work = os.path.join(tmp, sub)
+            os.makedirs(work, exist_ok=True)
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.chdir(work), contextlib.redirect_stdout(out):
+                rc = cli.main(base + extra)
+            sync(device)
+            log(f"[cli] {label} ({' '.join(extra)}): exit {rc}, {time.perf_counter() - t:.1f} s")
+            if rc != 0:
+                raise AssertionError(f"[cli] {label} exited with {rc}")
+            return out.getvalue(), work
+
+        out, work = run("benchmark", "bench", ["--spp", "3", "--benchmark", "--hdr"])
+        bench = json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
+        log(f"[cli] benchmark line: {json.dumps(bench)}")
+        png, = Path(work).glob("cornell.*.3samp.png")
+        img = read_png(str(png))
+        hdr = list(Path(work).glob("cornell.*.3samp.hdr"))
+        log(f"[cli] {png.name}: {img.shape}, mean {img.mean():.2f}; {len(hdr)} .hdr")
+        if img.shape != (800, 800, 3) or not img.max() > 0 or len(hdr) != 1:
+            raise AssertionError("[cli] the benchmark run's PNG or HDR is wrong")
+
+        run("checkpoint at 2", "resume", ["--spp", "2", "--save-every", "2"])
+        run("resume to 4", "resume", ["--spp", "4", "--save-every", "2", "--resume",
+                                      "cornell.ckpt.npz"])
+        run("uninterrupted 4", "straight", ["--spp", "4", "--save-every", "4"])
+        resumed = np.load(os.path.join(tmp, "resume", "cornell.ckpt.npz"))
+        straight = np.load(os.path.join(tmp, "straight", "cornell.ckpt.npz"))
+        d = np.abs(resumed["accum"] - straight["accum"]).max()
+        log(f"[cli] resumed film (iteration {int(resumed['iteration'])}) against the "
+            f"uninterrupted one ({int(straight['iteration'])}): max |d| {d:.3g} (bound: bit for "
+            f"bit)")
+        if not (int(resumed["iteration"]) == int(straight["iteration"]) == 4
+                and np.array_equal(resumed["accum"], straight["accum"])):
+            raise AssertionError("[cli] the resumed film differs from the uninterrupted one")
+
+        run("reorderings", "reorder", ["--spp", "2", "--compaction", "--material-sort"])
+        run("ray cache", "cache", ["--spp", "2", "--ray-cache"])
+        run("KD short stack", "kd", ["--no-auto-intersector", "--short-stack", "--depth", "2",
+                                     "--spp", "1"])
+        out, work = run("KD view", "viz", ["--viz-kd"])
+        viz, = Path(work).glob("cornell.kdviz.*.png")
+        if not read_png(str(viz)).max() > 0:
+            raise AssertionError("[cli] the KD view is black")
+        out, work = run("statistics, live, profile", "stats",
+                        ["--spp", "3", "--print-kd-stats", "--live", "1", "--profile", "prof"])
+        kd_line = next(line for line in out.splitlines() if line.startswith("kd:"))
+        trace = Path(work) / "prof" / "trace.json"
+        log(f"[cli] {kd_line}; live preview {out.count('iter ')} frames, {len(out)} characters "
+            f"captured; trace {trace.stat().st_size if trace.exists() else 0} bytes")
+        if out.count("\x1b[2Kiter ") != 3 or not trace.exists() or trace.stat().st_size == 0:
+            raise AssertionError("[cli] the live preview or the profiler trace is missing")
+        if not (Path(work) / "cornell.kdboxes.txt").exists():
+            raise AssertionError("[cli] --print-kd-stats wrote no box dump")
+    return read_counts()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     parser.add_argument("--shapes", nargs="?", const=",".join(SHAPES), default="",
@@ -2435,11 +2721,14 @@ def main() -> int:
     SHAPE_INPUTS.clear()  # the main paths' peak memory must not count these
     phase_goldens(device)
     phase_done("goldens")
-    phase_kd(scene, device)
+    big_call = phase_kd(scene, device)
     phase_done("kd")
     small = mesh_scene(2, 2.5, 800, device)  # 320 triangles: the default config's KD walk
     if tint.mesh_route(small.mesh, small.cmesh, RenderConfig(), small.kd) != "kd":
         raise AssertionError("the default config does not route a 320-triangle mesh to the KD walk")
+    kdwalks = phase_kdwalks(small, big_call, scene.mesh, device)
+    del big_call  # the main paths' peak memory must not count it
+    phase_done("kdwalks")
     paths = {
         "pairs": phase_main_path("pairs", scene, RenderConfig(trace_depth=8, antialias=True),
                                  device, ("pair_extract", "pair_runs", "gather_cols")),
@@ -2486,6 +2775,11 @@ def main() -> int:
     if it_b != it_p or d != 0.0:
         raise AssertionError("the pair_bdiag image differs from the default pair path's")
     phase_done("main paths")
+    paths["kdwalks"] = kdwalks
+    paths["extras"] = phase_extras(scene, device)
+    phase_done("extras")
+    paths["cli"] = phase_cli(device)
+    phase_done("cli")
     record_path = dict(RECORD_PATH)
     if not paths["cluster"]["cluster_sweep"]:
         record_path["cluster_sweep"] = "cluster_r4"

@@ -8,16 +8,20 @@ packages up to float summation order.
 
 It renders meshes through every mesh route of the JAX package's dispatch:
 the pair list (the default config from 1,024 triangles, with either pair
-kernel: ``pair_bdiag``), the fat-row KD walk (the default below that), the
-exact cluster walk, cluster rounds, the binned intersector and the two
-brute forces. It differentiates the render with respect to the material
-table, the camera and the mesh's triangle tables (``models.inverse``:
-``render_loss``, ``make_train_step``), and on the KD route with respect to
-the vertex positions and the camera, visibility edges included
-(``ops.edgegrad.make_render_geo``). Its twelve kernels, one for each
-TPU kernel of the JAX package, are CUDA C++ written for Hopper
+kernel: ``pair_bdiag``), every KD walk (the fat-row skip-link walk is the
+default below that; the short-stack, packet and thin-table walks on
+request), the exact cluster walk, cluster rounds, the binned intersector
+and the two brute forces, with the wavefront reorderings and the ray
+cache. Its front end is the command line (``python -m
+kdtreepathtraceroptimization_tpu_torch.cli SCENE.txt [MESH.obj]``) with the
+film checkpoints and image files. It differentiates the render with
+respect to the material table, the camera and the mesh's triangle tables
+(``models.inverse``: ``render_loss``, ``make_train_step``), and on the KD
+route with respect to the vertex positions and the camera, visibility
+edges included (``ops.edgegrad.make_render_geo``). Its twelve kernels, one
+for each TPU kernel of the JAX package, are CUDA C++ written for Hopper
 (``csrc/``), each with a plain PyTorch version beside it that runs on CPU
-tensors. Configurations outside the port raise ``NotImplementedError``.
+tensors.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.

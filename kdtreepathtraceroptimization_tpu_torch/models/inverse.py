@@ -16,7 +16,7 @@ import torch
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
 from kdtreepathtraceroptimization_tpu_torch.convert import materials_to_torch, scene_from_numpy
 from kdtreepathtraceroptimization_tpu_torch.ops.rng import Key
-from kdtreepathtraceroptimization_tpu_torch.render.integrator import _check_supported, trace_iteration
+from kdtreepathtraceroptimization_tpu_torch.render.integrator import trace_iteration
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MaterialSoA
 from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, to_tensor, use_full_f32
 
@@ -49,7 +49,6 @@ def make_train_step(scene, config: RenderConfig, target, learning_rate: float = 
     updates the state's material tensors in place."""
     device = resolve_device(device)
     use_full_f32()
-    _check_supported(scene, config)
     scene = scene_from_numpy(scene, device)
     target = to_tensor(target, device).to(torch.float32)
 

@@ -54,7 +54,6 @@ from kdtreepathtraceroptimization_tpu_torch.ops.camera import RaySoA, generate_r
 from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import pack_tris
 from kdtreepathtraceroptimization_tpu_torch.ops.rng import bounce_key, fold_in, uniform_scalar
-from kdtreepathtraceroptimization_tpu_torch.ops.traverse import check_config as check_kd_config
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import (
     intersect_scene,
     mesh_route,
@@ -487,8 +486,6 @@ def make_render_geo(scene, verts0, faces, config: RenderConfig,
     use_full_f32()
     scene = scene_from_numpy(scene, device)
     route = mesh_route(scene.mesh, None, config, scene.kd)
-    if route == "kd":
-        check_kd_config(config, scene.kd)
     edges = build_edges(np.asarray(faces))
     faces_t = _index(faces, device)
     geoms, camera = scene.geoms, scene.camera

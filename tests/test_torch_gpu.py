@@ -879,3 +879,72 @@ def test_cluster_and_binned_intersectors_on_cuda_match_cpu(cuda, route):
     assert hits[0][1]["repair"] == hits[1][1]["repair"] != "none"
     assert torch.equal(hits[0][0].tri.cpu(), hits[1][0].tri)
     torch.testing.assert_close(hits[0][0].t.cpu(), hits[1][0].t, rtol=1e-5, atol=0)
+
+
+# --------------------------------------------------------------------------
+# the other KD walks and the wavefront extras, on the card
+# --------------------------------------------------------------------------
+
+KD_WALKS = {
+    "fatrow_shortstack": dict(short_stack=True),
+    "packet": dict(packet_size=32),
+    "skiplink": dict(fat_rows=False),
+    "shortstack": dict(fat_rows=False, short_stack=True),
+    "pushdown": dict(fat_rows=False, short_stack=True, push_down_restart=True),
+}
+
+
+@pytest.mark.parametrize("walk", list(KD_WALKS))
+def test_kd_walks_on_cuda_match_brute_force_kernel(cuda, walk):
+    """Each KD walk (plain PyTorch) on the card against kernel 8 on 8,192
+    rays at a 5,120-triangle sphere in leaves of 8, a third with a t bound:
+    source-mesh ids on every ray, t within 1e-4 relative (the JAX
+    package's KD bound), no lane cut."""
+    from kdtreepathtraceroptimization_tpu_torch.accel.kdtree import build_kdtree_from_mesh
+    from kdtreepathtraceroptimization_tpu_torch.convert import kd_to_device
+    from kdtreepathtraceroptimization_tpu_torch.ops.traverse import intersect_mesh_kd
+
+    mesh = _mesh(4)
+    kd = kd_to_device(build_kdtree_from_mesh(mesh, leaf_size=8), cuda)
+    rng = np.random.default_rng(5)
+    o = rng.normal(size=(8192, 3)).astype(np.float32) * 5.0
+    d = np.array([0.3, -0.2, 0.5], np.float32) + rng.normal(size=(8192, 3)).astype(np.float32) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o, d = torch.tensor(o, device=cuda), torch.tensor(d, device=cuda)
+    t_max = torch.where(torch.arange(8192, device=cuda) % 3 == 0, 5.0, 1e30)
+    hit, stats = intersect_mesh_kd(o, d, kd, RenderConfig(**KD_WALKS[walk]), t_init=t_max,
+                                   collect_stats=True)
+    v = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (mesh.v0, mesh.v1, mesh.v2)]
+    want = mxu_bf.intersect_brute_mxu(o, d, *v, t_max=t_max)
+    src = torch.where(hit.tri >= 0, kd.tris.orig_index[hit.tri.clamp_min(0).long()], -1)
+    assert stats["cut"] == 0 and int((want.tri >= 0).sum()) > 2000
+    assert torch.equal(src, want.tri)
+    both = want.tri >= 0
+    torch.testing.assert_close(hit.t[both], want.t[both], rtol=1e-4, atol=0)
+
+
+def test_reordered_and_cached_pair_renders_bit_equal_on_cuda(cuda, tmp_path):
+    """On the pair path (5,120 triangles, 64x64, depth 4, 2 spp, AA on)
+    compaction and the material sort give the default image bit for bit,
+    and the ray cache's first iteration is the uncached one."""
+    import os
+
+    from kdtreepathtraceroptimization_tpu_torch.render.integrator import make_render_fn, render
+    from kdtreepathtraceroptimization_tpu_torch.ops.rng import prng_key
+    from kdtreepathtraceroptimization_tpu_torch.scene.parser import load_scene, with_resolution
+    from kdtreepathtraceroptimization_tpu_torch.utils.procmesh import write_obj
+
+    verts, faces = icosphere(4, radius=2.0, center=(0.0, 3.0, 0.0))
+    obj = str(tmp_path / "ico4.obj")
+    write_obj(obj, verts, faces)
+    cornell = os.path.join(os.path.dirname(__file__), "..", "scenes", "cornell.txt")
+    scene = with_resolution(load_scene(cornell, obj_path=obj, device=cuda), 64, 64)
+    base = dict(trace_depth=4, antialias=True, cluster_tile=256)
+    before = tpairs.PAIR_RUNS.launches
+    want = render(scene, RenderConfig(**base), spp=2, device=cuda)
+    assert tpairs.PAIR_RUNS.launches > before
+    for kw in (dict(compaction=True), dict(material_sort=True)):
+        assert torch.equal(render(scene, RenderConfig(**base, **kw), spp=2, device=cuda), want)
+    films = [make_render_fn(scene, RenderConfig(**base, ray_cache=cache), seed=0, device=cuda)(
+        torch.zeros((64 * 64, 3), device=cuda), prng_key(0), 1) for cache in (False, True)]
+    assert torch.equal(films[0], films[1])

@@ -28,8 +28,10 @@ _CHILD = textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
-    # the KD route's modules are among them
-    for name in ("accel.kdtree", "accel.kdtools", "accel.native", "ops.traverse"):
+    # the KD route's modules and the command line's are among them
+    for name in ("accel.kdtree", "accel.kdtools", "accel.native", "ops.traverse", "cli",
+                 "ops.compaction", "ops.kdviz", "render.film", "utils.image",
+                 "utils.termview"):
         assert pkg.__name__ + "." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -164,10 +164,28 @@ def test_kd_walk_matches_jax_and_brute(octant_rows):
     (dict(fat_rows=False), "thin-table"),
 ])
 def test_kd_unported_walks_raise(kw, match):
-    kd = kd_to_device(tkd.build_kdtree(*_ico(1), leaf_size=4), "cpu")
+    """The four walk configurations the port raised for before it had
+    them (the fat-row short-stack walk, which push_down_restart does not
+    change with fat rows; packets; the thin skip-link walk): each now
+    gives the JAX package's hits under the same parameters, as source-mesh
+    ids with t within 1e-4 relative (the JAX KD bound), on an
+    icosphere-1 in leaves of 4, and no lane is cut. ``match`` names the
+    option each case selects."""
+    v = _ico(1)
+    kd_np = tkd.build_kdtree(*v, leaf_size=4)
     o, d = _rays(64, seed=1)
-    with pytest.raises(NotImplementedError, match=match):
-        ttrav.intersect_mesh_kd(torch.from_numpy(o), torch.from_numpy(d), kd, TCfg(**kw))
+    got, stats = ttrav.intersect_mesh_kd(torch.from_numpy(o), torch.from_numpy(d),
+                                         kd_to_device(kd_np, "cpu"), TCfg(**kw),
+                                         collect_stats=True)
+    assert stats["cut"] == 0
+    jk = jkd.build_kdtree(*v, leaf_size=4)
+    want = jtrav.intersect_mesh_kd(jnp.asarray(o), jnp.asarray(d), jk, JCfg(**kw))
+    wtri = np.asarray(want.tri)
+    gtri = got.tri.numpy()
+    assert (wtri >= 0).sum() > 16
+    np.testing.assert_array_equal(_source_ids(kd_np, gtri), _source_ids(jk, wtri), err_msg=match)
+    hit = gtri >= 0
+    np.testing.assert_allclose(got.t.numpy()[hit], np.asarray(want.t)[hit], rtol=1e-4)
 
 
 def test_kd_routes(tmp_path):
@@ -220,9 +238,9 @@ def test_mesh_kd_48_golden(tmp_path):
 
 
 def test_cross_mode_agreement(tmp_path):
-    """tests/test_golden.py's cross-mode check for the six modes the port
-    has (the KD packet walk is not ported): pairs, walk, binned and both
-    brute forces within mean 1e-2 of the KD render, on the mesh_kd_48
+    """tests/test_golden.py's cross-mode check for its seven modes: pairs,
+    walk, binned, KD packets and both brute forces within mean 1e-2 of
+    the KD render, on the mesh_kd_48
     scene (at 4 spp where the JAX test takes 8: every mode draws the same
     random streams, so they differ only where a ray grazes an edge)."""
     scene = tparser.with_resolution(
@@ -233,6 +251,7 @@ def test_cross_mode_agreement(tmp_path):
         "pairs": TCfg(**cbase, cluster_pairs=True),
         "walk": TCfg(**cbase, cluster_pairs=False, cluster_walk=True),
         "binned": TCfg(**cbase, cluster_pairs=False, cluster_binned=True, binned_rounds=8),
+        "kd_packet": TCfg(trace_depth=4, packet_size=32),
         "brute_mxu": TCfg(trace_depth=4, enable_kd=False),
         "brute_vpu": TCfg(trace_depth=4, enable_kd=False, mxu_brute=False),
     }

@@ -163,8 +163,27 @@ def test_formerly_unported_configs_render(tmp_path, kw, route):
     dict(ray_cache=True, **WALK),
 ])
 def test_unported_configs_raise(tmp_path, kw):
-    scene = tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 1, 2.0),
-                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        render(scene, TCfg(trace_depth=1, **kw), spp=1, device="cpu")
-
+    """The three wavefront options the port raised for before it had them
+    now render the JAX package's image of the same scene tables (16x16,
+    depth 2, 2 spp, an 80-triangle sphere on the cluster walk) within mean
+    |d| 2e-3, as test_walk_render_matches_jax bounds the walk. Compaction
+    and the material sort leave the port's default image unchanged bit for
+    bit (the streams are keyed by pixel); the ray cache's first iteration
+    is the default's (its rays are iteration 1's), its second is not."""
+    jscene = jparser.with_resolution(
+        jparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 1, 2.0), build_kd=False),
+        16, 16)
+    tscene = scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
+    cfg = dict(trace_depth=2, antialias=True, cluster_tile=64, **kw)
+    img_j = np.asarray(jrender(jscene, JCfg(**cfg), spp=2, seed=3))
+    img_t = render(tscene, TCfg(**cfg), spp=2, seed=3, device="cpu").numpy()
+    assert np.abs(img_j - img_t).mean() <= 2e-3
+    plain = dict(cfg, compaction=False, material_sort=False, ray_cache=False)
+    if kw.get("ray_cache"):
+        for spp, same in ((1, True), (2, False)):
+            a = render(tscene, TCfg(**cfg), spp=spp, seed=3, device="cpu")
+            b = render(tscene, TCfg(**plain), spp=spp, seed=3, device="cpu")
+            assert torch.equal(a, b) == same
+    else:
+        np.testing.assert_array_equal(
+            img_t, render(tscene, TCfg(**plain), spp=2, seed=3, device="cpu").numpy())
