@@ -82,11 +82,11 @@ gradient path on Cornell + an 81,920-triangle icosphere at 800x800:
    heaviest launch, kernel 5 on pass 2's and in its split form on pass
    1's, kernel 1 on pass 3's, kernel 9 and 12 on the binned path's), each equal
    to the sources' own shape bit for bit;
-5. golden parity: ``cornell_64``, ``cornell_spec_64`` (every pixel but
-   the ten its jit render branched), ``mesh_pairs_48`` in its own (pair)
-   config and in walk, cluster-rounds and binned config, ``mesh_kd_48``
-   (the KD walk in the default config), against the JAX package's
-   goldens;
+5. golden parity: the cases of ``tools/goldens.CASES``: ``cornell_64``,
+   ``cornell_spec_64`` (every pixel but the ten its jit render branched),
+   ``mesh_pairs_48`` in its own (pair) config and in walk, cluster-rounds
+   and binned config, ``mesh_kd_48`` (the KD walk in the default config),
+   against the JAX package's goldens;
 5b. ``[kd]``: the native and numpy KD builds of the 81,920-triangle mesh
    (seconds, tree statistics), and the KD walk (``cluster_auto=False``)
    against the brute-force kernel on every ray of the second bounce, as
@@ -132,6 +132,28 @@ gradient path on Cornell + an 81,920-triangle icosphere at 800x800:
    ``--compaction --material-sort``, ``--ray-cache``, the KD route's
    ``--short-stack`` walk at depth 2, ``--viz-kd`` and ``--print-kd-stats
    --live 1 --profile DIR``; each run exits 0, with its wall seconds;
+6d. ``[interactive]``: ``cli --interactive`` as a child at 800x800, depth
+   8, AA on, its stdin a pipe holding the keys LEFT, A, S, q: exit 0, the
+   PNGs of iterations 2 and 3, the last byte-equal to an in-process render
+   of the orbited camera (iteration 1 with AA on, 2-3 with it off); its
+   wall seconds;
+6e. ``[parallel]`` (``parallel/``): on a NCCL group of world 1,
+   ``render_distributed`` at 2 spp bit-equal to ``render``, and two
+   sharded training steps bit-equal to ``make_train_step``'s (loss, every
+   gradient, the materials after Adam; one ``all_reduce`` a step); a
+   forward step issues no collective; the four slabs of a notional world
+   of 4, each rendered by ``make_render_fn(pixels=)`` on this card, with
+   ms a slab, concatenate to the full film bit for bit; ``binned_shards``
+   = 4 on the recorded bounce-1 calls of the pair, walk and binned paths
+   against S = 1 (pairs and walk bit for bit; binned ids >= 99.99%, t
+   within 1e-5 relative), with ms, and the binned path's depth-8
+   iteration at S = 4 against S = 1 (max |d| printed);
+6f. ``[tools]``: ``tools/benchmarks`` over its seven modes at 800x800,
+   depth 8, subdivisions 2 and 4 (2 iterations, 1 repeat) into JSON, every
+   mode timed, ``tools/charts``' SVG of it (a line a mode), and
+   ``tools/scaling`` at 800x800, depth 8, on the 81,920-triangle mesh:
+   its one-card row (ms an iteration, rays/s, collectives of a forward
+   and a training step) and its measured-work rows at S = 1, 2, 4, 8;
 7. ``[train]``: 12 steps of ``make_train_step`` on the pair path at depth
    8 from halved material colours towards the port's render of the true
    ones, with every loss, ms/step, the forward/backward split and peak
@@ -155,7 +177,10 @@ gradient path on Cornell + an 81,920-triangle icosphere at 800x800:
    alive samples of both boundary terms and the launches (kernels 3 and 4
    must launch; the gradients finite, the boundary part non-zero); then
    tests/test_edgegrad.py's occluder check (vertex, 32x32, finite
-   differences at 8 x 8 supersampling, within 0.25).
+   differences at 8 x 8 supersampling, within 0.25);
+11. ``[fault]``: ``utils/fault.run_isolated`` on three children, one that
+   asks the card for 1 TiB (classified ``oom``), one that sleeps past a
+   10 s timeout (``hang``) and a clean one (``ok``).
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -167,12 +192,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -202,14 +229,28 @@ from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
 from kdtreepathtraceroptimization_tpu_torch.ops.kdviz import render_kd_boxes
 from kdtreepathtraceroptimization_tpu_torch.ops.rng import bounce_key, prng_key
 from kdtreepathtraceroptimization_tpu_torch.ops.vecmath import v3_to_rows
+from kdtreepathtraceroptimization_tpu_torch.parallel import multihost as tmultihost
+from kdtreepathtraceroptimization_tpu_torch.parallel import sharding as tsh
 from kdtreepathtraceroptimization_tpu_torch.render import integrator as tint
+from kdtreepathtraceroptimization_tpu_torch.render.film import tonemap_srgb_u8
+from kdtreepathtraceroptimization_tpu_torch.render.interactive import apply_key
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import (
     make_render_block_fn,
     render,
 )
 from kdtreepathtraceroptimization_tpu_torch.utils.device import use_full_f32
-from kdtreepathtraceroptimization_tpu_torch.scene.parser import load_scene, with_resolution
+from kdtreepathtraceroptimization_tpu_torch.scene.parser import (
+    load_scene,
+    replace_camera,
+    with_resolution,
+)
+from kdtreepathtraceroptimization_tpu_torch.tools import benchmarks as tbench
+from kdtreepathtraceroptimization_tpu_torch.tools import charts as tcharts
+from kdtreepathtraceroptimization_tpu_torch.tools import goldens as tgoldens
+from kdtreepathtraceroptimization_tpu_torch.tools import scaling as tscaling
 from kdtreepathtraceroptimization_tpu_torch.utils import cuda_build
+from kdtreepathtraceroptimization_tpu_torch.utils.fault import run_isolated
+from kdtreepathtraceroptimization_tpu_torch.utils.image import read_png
 from kdtreepathtraceroptimization_tpu_torch.utils.procmesh import icosphere, write_obj
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1850,18 +1891,19 @@ def phase_kd(scene, device) -> tuple:
 
 
 def phase_goldens(device):
-    """The JAX package's committed goldens, rendered by the port."""
-    scene = with_resolution(load_scene(CORNELL, device=device), 64, 64)
-    img = render(scene, RenderConfig(trace_depth=8, antialias=True), spp=8,
-                 seed=0, device=device)
-    d = np.abs(img.cpu().numpy() - np.load(os.path.join(GOLDENS, "cornell_64.npy")))
+    """The JAX package's committed goldens, rendered by the port: the cases
+    of ``tools/goldens.CASES``, and the pair case's scene in the other
+    exact intersectors' configs."""
+    def golden(name):
+        return np.load(os.path.join(GOLDENS, f"{name}.npy"))
+
+    log(f"[golden] cases from tools/goldens.CASES: {', '.join(tgoldens.CASES)}")
+    d = np.abs(tgoldens.render_case("cornell_64", device) - golden("cornell_64"))
     log(f"[golden] cornell_64: max |d| {d.max():.3g}, mean |d| {d.mean():.3g} "
         f"(bound: per pixel 2e-3)")
     if d.max() > 2e-3:
         raise AssertionError("cornell_64 differs from its golden beyond atol 2e-3")
-    img = render(scene, RenderConfig(trace_depth=8, antialias=False, enable_sss=True), spp=8,
-                 seed=0, device=device)
-    d = np.abs(img.cpu().numpy() - np.load(os.path.join(GOLDENS, "cornell_spec_64.npy")))
+    d = np.abs(tgoldens.render_case("cornell_spec_64", device) - golden("cornell_spec_64"))
     off = np.flatnonzero((d > 2e-3).any(axis=-1))
     log(f"[golden] cornell_spec_64: max |d| {d.max():.3g}, mean |d| {d.mean():.3g}; {off.size} "
         f"pixels beyond atol 2e-3 ({', '.join(str(i) for i in off)}) (bound: no pixel but "
@@ -1869,11 +1911,10 @@ def phase_goldens(device):
     if not set(off.tolist()) <= set(SPEC_JIT_BRANCHED_PIXELS):
         raise AssertionError("cornell_spec_64 differs from its golden beyond atol 2e-3")
 
-    scene = mesh_scene(4, 2.0, 48, device)
-    golden = np.load(os.path.join(GOLDENS, "mesh_pairs_48.npy"))
-    pair_img = render(scene, RenderConfig(trace_depth=4, cluster_tile=256, **PAIRS),
-                      spp=8, seed=0, device=device).cpu().numpy()
-    d = np.abs(pair_img - golden)
+    make_scene, pair_config, spp = tgoldens.CASES["mesh_pairs_48"]
+    scene = make_scene(device)
+    pair_img = render(scene, pair_config, spp=spp, seed=0, device=device).cpu().numpy()
+    d = np.abs(pair_img - golden("mesh_pairs_48"))
     off = np.flatnonzero((d > 2e-3).any(axis=-1))
     log(f"[golden] mesh_pairs_48 (its own pair config): max |d| {d.max():.3g}, mean |d| "
         f"{d.mean():.3g}; {off.size} of {d.shape[0] * d.shape[1]} pixels beyond atol 2e-3 "
@@ -1886,9 +1927,9 @@ def phase_goldens(device):
     # tests/test_golden.py:78-81)
     for label, kw in (("walk", WALK), ("cluster rounds", dict(cluster_rounds=6, **CLUSTER)),
                       ("binned", dict(binned_rounds=8, **BINNED))):
-        img = render(scene, RenderConfig(trace_depth=4, cluster_tile=256, **kw),
-                     spp=8, seed=0, device=device).cpu().numpy()
-        d = np.abs(img - golden)
+        img = render(scene, dataclasses.replace(pair_config, **kw), spp=spp, seed=0,
+                     device=device).cpu().numpy()
+        d = np.abs(img - golden("mesh_pairs_48"))
         log(f"[golden] mesh_pairs_48 ({label} config): max |d| {d.max():.3g}, mean |d| "
             f"{d.mean():.3g}, mean |d| against the port's pair render "
             f"{np.abs(img - pair_img).mean():.3g} (bound: mean 1e-2)")
@@ -1897,11 +1938,10 @@ def phase_goldens(device):
                                  f"mean 1e-2")
 
     # the KD golden: icosphere-2 (320 triangles) in the default config
-    scene = mesh_scene(2, 2.0, 48, device)
-    config = RenderConfig(trace_depth=4, enable_kd=True)
+    make_scene, config, _ = tgoldens.CASES["mesh_kd_48"]
+    scene = make_scene(device)
     route = tint.mesh_route(scene.mesh, scene.cmesh, config, scene.kd)
-    img = render(scene, config, spp=8, seed=0, device=device).cpu().numpy()
-    d = np.abs(img - np.load(os.path.join(GOLDENS, "mesh_kd_48.npy")))
+    d = np.abs(tgoldens.render_case("mesh_kd_48", device) - golden("mesh_kd_48"))
     off = np.flatnonzero((d > 2e-3).any(axis=-1))
     log(f"[golden] mesh_kd_48 (route {route}): max |d| {d.max():.3g}, mean |d| {d.mean():.3g}; "
         f"{off.size} pixels beyond atol 2e-3 ({', '.join(str(i) for i in off)}) (bound: no "
@@ -2583,7 +2623,6 @@ def phase_cli(device) -> dict:
     81,920 triangles (depth 2), the KD view, the KD statistics, the live
     preview and a profiler trace."""
     from kdtreepathtraceroptimization_tpu_torch import cli
-    from kdtreepathtraceroptimization_tpu_torch.utils.image import read_png
 
     zero_counts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2648,6 +2687,262 @@ def phase_cli(device) -> dict:
         if not (Path(work) / "cornell.kdboxes.txt").exists():
             raise AssertionError("[cli] --print-kd-stats wrote no box dump")
     return read_counts()
+
+
+# The [interactive] phase's key script: orbit left (film reset), toggle
+# AA (step rebuilt, film kept), save, quit (save).
+KEY_SCRIPT = b"\x1b[DASq"
+# [fault]: a child that asks the card for more memory than it has, one
+# that sleeps past HANG_TIMEOUT_S, and a clean one.
+HANG_TIMEOUT_S = 10.0
+FAULT_CHILDREN = (
+    ("oom", "import torch; torch.empty(1 << 40, dtype=torch.uint8, device='cuda')"),
+    ("hang", "import time; time.sleep(60)"),
+    ("ok", "import torch; torch.zeros(1, device='cuda'); torch.cuda.synchronize()"),
+)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_interactive(scene, device) -> dict:
+    """The command line's ``--interactive`` as a child at 800x800, depth 8,
+    AA on, its stdin a pipe holding KEY_SCRIPT: it exits 0 with the PNGs
+    of iterations 2 (S) and 3 (q), and the last equals, byte for byte, an
+    in-process render of the orbited camera (iteration 1 with AA on,
+    iterations 2-3 with AA off, seed 0)."""
+    obj = os.path.join(WORK, "icosphere6_r2.5.obj")  # mesh_scene's OBJ of ``scene``
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "kdtreepathtraceroptimization_tpu_torch.cli", CORNELL, obj,
+               "--interactive", "--res", "800", "800", "--depth", "8", "--aa"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+        t = time.perf_counter()
+        out = subprocess.run(cmd, input=KEY_SCRIPT, cwd=tmp, env=env, capture_output=True,
+                             timeout=600)
+        wall = time.perf_counter() - t
+        text = out.stdout.decode(errors="replace")
+        actions = re.findall(r"\[(orbit \w+|antialias=\w+)\]", text)
+        pngs = sorted(Path(tmp).glob("cornell.*samp.png"))
+        log(f"[interactive] child (--interactive, keys {KEY_SCRIPT!r}): exit {out.returncode}, "
+            f"{wall:.1f} s wall, actions {actions}, wrote {[p.name for p in pngs]}")
+        if out.returncode != 0:
+            raise AssertionError("[interactive] the child failed:\n"
+                                 + out.stderr.decode(errors="replace")[-3000:])
+        if len(pngs) != 2 or not pngs[0].name.endswith(".2samp.png") \
+                or not pngs[1].name.endswith(".3samp.png"):
+            raise AssertionError(f"[interactive] expected the PNGs of iterations 2 and 3: {pngs}")
+        final = read_png(str(pngs[1]))
+
+    config = RenderConfig(trace_depth=8, antialias=True)
+    moved = replace_camera(scene, apply_key("LEFT", scene.camera, config, device).camera)
+    n = 800 * 800
+    zero_counts()
+    film = torch.zeros((n, 3), device=device)
+    key = prng_key(0)
+    film = tint.make_render_fn(moved, config, seed=0, device=device)(film, key, 1)
+    step = tint.make_render_fn(moved, dataclasses.replace(config, antialias=False), seed=0,
+                               device=device)
+    for it in (2, 3):
+        film = step(film, key, it)
+    want = tonemap_srgb_u8((film.cpu().numpy() / 3).reshape(800, 800, 3))
+    diff = np.abs(final.astype(int) - want.astype(int))
+    log(f"[interactive] final PNG against the in-process render of the orbited camera: "
+        f"{int((diff > 0).sum())} channels differ, max |d| {diff.max()} (bound: byte for byte)")
+    if not np.array_equal(final, want):
+        raise AssertionError("[interactive] the final PNG differs from the in-process render")
+    return read_counts()
+
+
+def phase_parallel(scene, device) -> dict:
+    """The ray-axis split (parallel/): a NCCL group of world 1 renders 2
+    spp through render_distributed bit-equal to render, and takes a
+    sharded training step bit-equal to make_train_step's (loss, every
+    gradient, the updated materials); a forward step issues no
+    collective; the four slabs of a notional world of 4, each rendered by
+    make_render_fn's slab path on this card, concatenate to the full film bit
+    for bit; binned_shards = 4 on the recorded bounce-1 calls of the pair,
+    walk and binned paths against S = 1 (pairs and walk bit for bit,
+    binned ids >= 99.99%, t within 1e-5 relative), and the binned path's
+    depth-8 iteration against S = 1's (max |d| reported)."""
+    config = RenderConfig(trace_depth=8, antialias=True)
+    res = int(scene.camera.resolution[0])
+    n = res * res
+    key = prng_key(0)
+    zero_counts()
+    tmultihost.initialize(f"localhost:{free_port()}", 1, 0, device=device, timeout_s=120.0)
+    try:
+        log(f"[parallel] process group: backend {torch.distributed.get_backend()}, world "
+            f"{torch.distributed.get_world_size()}")
+        img, ms_d = timed(lambda: tmultihost.render_distributed(scene, config, 2, seed=0,
+                                                                device=device), device)
+        ref, ms_r = timed(lambda: render(scene, config, 2, seed=0, device=device), device)
+        log(f"[parallel] render_distributed (world 1, 2 spp) {ms_d:.1f} ms, render {ms_r:.1f} "
+            f"ms; max |d| {(img - ref).abs().max().item():.3g} (bound: bit for bit)")
+        if not torch.equal(img, ref):
+            raise AssertionError("[parallel] render_distributed differs from render")
+
+        tsh.reset_collectives()
+        step = tsh.make_sharded_render_fn(scene, config, device=device)
+        step(tsh.device_film(n, device=device), key, 1)
+        forward = dict(tsh.COLLECTIVES)
+        log(f"[parallel] collectives of one forward step: {forward} (bound: none)")
+        if any(forward.values()):
+            raise AssertionError("[parallel] the forward step issued a collective")
+
+        perturbed = scene._replace(materials=scene.materials._replace(
+            color=np.asarray(scene.materials.color) * 0.5))
+        target = ref.reshape(n, 3)
+        init_a, step_a = make_train_step(perturbed, config, target, learning_rate=2e-2,
+                                         device=device)
+        init_b, step_b = tsh.make_sharded_train_step(perturbed, config, target,
+                                                     learning_rate=2e-2, device=device)
+        sa, sb = init_a(), init_b()
+        for it in (1, 2):  # step 2's ms: step 1 holds the first backward's set-up
+            (sa, la), ms_a = timed(lambda: step_a(sa, key, it), device)
+            tsh.reset_collectives()
+            (sb, lb), ms_b = timed(lambda: step_b(sb, key, it), device)
+            train = dict(tsh.COLLECTIVES)
+            grads_equal = all(
+                torch.equal(b.grad, torch.zeros_like(b) if a.grad is None else a.grad)
+                for a, b in zip(sa.materials, sb.materials))
+            params_equal = all(torch.equal(a, b) for a, b in zip(sa.materials, sb.materials))
+            log(f"[parallel] sharded train step {it} (world 1) {ms_b:.1f} ms, make_train_step "
+                f"{ms_a:.1f} ms; loss {lb.item():.8g} vs {la.item():.8g}; gradients equal "
+                f"{grads_equal}, materials after Adam equal {params_equal}; collectives "
+                f"{train} (bound: bit for bit, one all_reduce)")
+            if not (torch.equal(la, lb) and grads_equal and params_equal) \
+                    or train != {"all_reduce": 1, "all_gather": 0}:
+                raise AssertionError("[parallel] the sharded train step differs from "
+                                     "make_train_step")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    full = tint.make_render_fn(scene, config, seed=0, device=device)(
+        torch.zeros((n, 3), device=device), key, 1)
+    parts = []
+    for r in range(4):
+        lo, hi = tsh.slab(r, 4, n)
+        step = tint.make_render_fn(scene, config, seed=0, device=device, pixels=(lo, hi))
+        film, ms = timed(lambda: step(torch.zeros((hi - lo, 3), device=device), key, 1),
+                         device)
+        parts.append(film)
+        log(f"[parallel] slab {r} of 4 (pixels {lo}-{hi}): {ms:.1f} ms")
+    d = (torch.cat(parts) - full).abs().max().item()
+    log(f"[parallel] four slabs against the full film (iteration 1): max |d| {d:.3g} (bound: "
+        f"bit for bit)")
+    if not torch.equal(torch.cat(parts), full):
+        raise AssertionError("[parallel] the four slabs differ from the full film")
+
+    for label, kw, name, fn in (
+            ("pairs", {}, "intersect_mesh_pairs", tpairs.intersect_mesh_pairs),
+            ("walk", WALK, "intersect_mesh_walk", twalk.intersect_mesh_walk),
+            ("binned", BINNED, "intersect_mesh_binned", tbinned.intersect_mesh_binned)):
+        args, kwargs = bounce_args(scene, RenderConfig(trace_depth=8, antialias=True, **kw),
+                                   name, device)
+        args4 = list(args)
+        args4[3] = dataclasses.replace(args[3], binned_shards=4)
+        for _ in range(2):  # the second call's ms: the first holds first-use set-up
+            base, ms1 = timed(lambda: fn(*args, **kwargs), device)
+            hit, ms4 = timed(lambda: fn(*args4, **kwargs), device)
+        same = (hit.tri == base.tri).float().mean().item()
+        both = (hit.tri >= 0) & (base.tri >= 0)
+        rel = ((hit.t - base.t).abs() / base.t.abs().clamp_min(1e-30))[both]
+        rel_max = rel.max().item() if rel.numel() else 0.0
+        exact = torch.equal(hit.t, base.t) and torch.equal(hit.tri, base.tri)
+        log(f"[parallel] binned_shards 4, {label} bounce 1: {ms4:.2f} ms (S = 1 {ms1:.2f} ms); "
+            f"bit-equal {exact}; ids equal on {same:.6%}, {int((hit.tri != base.tri).sum())} "
+            f"differ; max |dt|/t {rel_max:.3g} "
+            f"(bound: {'ids >= 99.99%, t 1e-5' if label == 'binned' else 'bit for bit'})")
+        if label != "binned" and not exact:
+            raise AssertionError(f"[parallel] binned_shards 4 differs from S = 1 on {label}")
+        if label == "binned" and (same < 0.9999 or rel_max > 1e-5):
+            raise AssertionError("[parallel] binned_shards 4 differs from S = 1 on binned beyond "
+                                 "its bound")
+
+    imgs = {}
+    for s in (1, 4):
+        step = make_render_block_fn(
+            scene, RenderConfig(trace_depth=8, antialias=True, binned_shards=s, **BINNED), 1,
+            device=device)
+        imgs[s], ms = timed(lambda: step(torch.zeros((n, 3), device=device), key, 1), device)
+        log(f"[parallel] binned path, binned_shards {s}: iteration 1 in {ms:.1f} ms")
+    d = (imgs[4] - imgs[1]).abs()
+    log(f"[parallel] binned path's depth-8 iteration, S = 4 against S = 1: max |d| "
+        f"{d.max().item():.4g}, mean |d| {d.mean().item():.4g}, "
+        f"{int((d > 0).any(1).sum())} of {n} pixels differ")
+    if not torch.isfinite(imgs[4]).all() or not imgs[4].mean().item() > 0:
+        raise AssertionError("[parallel] the binned S = 4 image is not finite or is black")
+    return read_counts()
+
+
+def phase_tools(device) -> dict:
+    """tools/benchmarks over its seven modes at 800x800, depth 8, subdiv 2
+    and 4 (2 iterations, 1 repeat) into JSON, each mode on the intersector
+    it names (tools/benchmarks.ROUTES), tools/charts' SVG of it, and
+    tools/scaling's one-card row and measured-work rows (S = 1, 2, 4, 8)
+    at 800x800, depth 8, on the 81,920-triangle icosphere."""
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep = os.path.join(tmp, "sweep.json")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = tbench.main(["--res", "800", "--depth", "8", "--subdiv", "2", "4", "--iters",
+                              "2", "--repeats", "1", "--json", sweep])
+        log(f"[tools] benchmarks: exit {rc}, {time.perf_counter() - t:.1f} s")
+        with open(sweep) as f:
+            data = json.load(f)
+        for row in data["rows"]:
+            log(f"[tools] benchmarks {row['tris']} triangles, {row['res']}x{row['res']}, depth "
+                f"{row['depth']}: ms/iteration " + ", ".join(
+                    f"{m} {v}" for m, v in row["ms"].items()))
+        timed_modes = [set(m for m, v in row["ms"].items() if v) for row in data["rows"]]
+        if rc != 0 or len(data["rows"]) != 2 or any(m != set(tbench.MODES) for m in timed_modes):
+            raise AssertionError(f"[tools] the benchmark sweep did not time every mode: {data}")
+        strays = [(row["tris"], m, r) for row in data["rows"] for m, r in row["routes"].items()
+                  if r != tbench.ROUTES[m]]
+        log(f"[tools] benchmarks: every mode took its own intersector: {not strays} "
+            f"({tbench.ROUTES})")
+        if strays:
+            raise AssertionError(f"[tools] benchmark modes took another intersector (triangles, "
+                                 f"mode, route): {strays}")
+        svg = os.path.join(tmp, "sweep.svg")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = tcharts.main([sweep, "-o", svg])
+        text = Path(svg).read_text()
+        log(f"[tools] charts: exit {rc}, {len(text)} bytes of SVG, "
+            f"{text.count('<path')} lines")
+        if rc != 0 or not text.startswith("<svg") or text.count("<path") != len(tbench.MODES):
+            raise AssertionError("[tools] the chart is wrong")
+    rec = tscaling.run(res=800, subdiv=6, depth=8, iters=2, worlds=(1,), device=device)
+    for row in rec["rows"]:
+        log(f"[tools] scaling world {row['devices']}: {row['ms_per_iter']:.2f} ms/iteration, "
+            f"{row['rays_per_sec']:.6g} rays/s, collectives {row['collectives']}")
+    for row in rec["measured_work"]:
+        log(f"[tools] scaling measured work S = {row['devices']}: pair rows a row "
+            f"{row['per_device_pair_rows']}, rounds ({row['n1_rounds']}, {row['p2_rounds']}, "
+            f"{row['p3_rounds']}), efficiency {row['measured_work_efficiency']:.4f}")
+    if rec["rows"][0]["collectives"]["forward_step"] != {"all_reduce": 0, "all_gather": 0}:
+        raise AssertionError("[tools] the scaling tool's forward step issued a collective")
+    return read_counts()
+
+
+def phase_fault() -> None:
+    """utils/fault.run_isolated on FAULT_CHILDREN, each classified as
+    named (a clean exit is "ok")."""
+    for want, code in FAULT_CHILDREN:
+        t = time.perf_counter()
+        res = run_isolated(["-c", code], timeout=HANG_TIMEOUT_S if want == "hang" else 300.0)
+        kind = "ok" if res["ok"] else res["failure"]["kind"]
+        detail = "" if res["ok"] else f", detail {res['failure']['detail'][:1]}"
+        log(f"[fault] {want} child: exit {res['returncode']}, classified {kind} in "
+            f"{time.perf_counter() - t:.1f} s{detail}")
+        if kind != want:
+            raise AssertionError(f"[fault] the {want} child was classified {kind}:\n"
+                                 f"{res['stderr'][-2000:]}")
 
 
 def main() -> int:
@@ -2780,6 +3075,12 @@ def main() -> int:
     phase_done("extras")
     paths["cli"] = phase_cli(device)
     phase_done("cli")
+    paths["interactive"] = phase_interactive(scene, device)
+    phase_done("interactive")
+    paths["parallel"] = phase_parallel(scene, device)
+    phase_done("parallel")
+    paths["tools"] = phase_tools(device)
+    phase_done("tools")
     record_path = dict(RECORD_PATH)
     if not paths["cluster"]["cluster_sweep"]:
         record_path["cluster_sweep"] = "cluster_r4"
@@ -2789,6 +3090,8 @@ def main() -> int:
     phase_done("gradients")
     paths["edgegrad"] = phase_edgegrad(small, device)
     phase_done("edgegrad")
+    phase_fault()
+    phase_done("fault")
     unused = [k for k, _, _, _ in KERNELS if not any(p[k] for p in paths.values())]
     if unused:
         raise AssertionError(f"kernels launched on no path: {unused}")

@@ -24,7 +24,8 @@ It renders on the CUDA device unless ``--device`` names another
 writes the averaged PNG at the end, and with ``--save-every N`` a
 checkpoint (``<FILE>.ckpt.npz`` in the working directory, the JAX
 package's format) every N iterations, which ``--resume`` continues.
-``--interactive`` (``render/interactive.py``) is not ported yet.
+``--interactive`` (``render/interactive.py``) renders until ``q`` (or
+``--spp`` iterations), reading keys from the terminal or a pipe.
 """
 
 from __future__ import annotations
@@ -100,8 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--live-cols", type=int, default=64,
                    help="terminal preview width in character cells")
     p.add_argument("--interactive", action="store_true",
-                   help="terminal interactive mode (not ported yet: exits with "
-                        "status 2)")
+                   help="terminal interactive mode: keyboard camera, toggles "
+                        "and live preview (render/interactive.py)")
     p.add_argument("--save-every", type=int, default=0,
                    help="write progressive checkpoints every N iterations")
     p.add_argument("--resume", default=None, help="resume from a .npz checkpoint")
@@ -113,10 +114,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.interactive:
-        print("error: --interactive is not ported yet (render/interactive.py)",
-              file=sys.stderr)
-        return 2
 
     import torch
 
@@ -209,6 +206,18 @@ def main(argv=None) -> int:
         dump = scene.state.image_name + ".kdboxes.txt"
         write_kd_to_file(scene.kd, dump)
         print(f"wrote {dump} (Houdini bbox-dump format)")
+
+    if args.interactive:
+        from kdtreepathtraceroptimization_tpu_torch.render.interactive import run_interactive
+
+        def save_fn(img_np, iteration):
+            out = args.output or render_filename(scene.state.image_name, iteration)
+            write_png(out, tonemap_srgb_u8(img_np.reshape(res_y, res_x, 3)))
+            print(f"\nwrote {out}", flush=True)
+
+        run_interactive(scene, config, args.seed, save_fn, cols=args.live_cols,
+                        max_iters=args.spp if args.spp else 0, device=device)
+        return 0
 
     step = make_render_fn(scene, config, seed=args.seed, device=device)
     key = prng_key(args.seed)

@@ -7,10 +7,10 @@ implements every field: all seven mesh intersectors of the JAX dispatch
 walk; binned; cluster rounds; every KD walk: the fat-row skip-link,
 short-stack and packet walks and the thin-table skip-link, short-stack and
 push-down walks; both brute forces), the wavefront reorderings
-(``compaction``, ``material_sort``) and the ray cache (``ray_cache``).
-Two differ: ``binned_shards`` other than 1 raises (the port runs on one
-device), and ``scan_bounces`` changes nothing (the bounce loop is always
-a Python loop; the JAX package pins its two forms equal). The field
+(``compaction``, ``material_sort``), the ray cache (``ray_cache``) and
+the shard-local sorts (``binned_shards``). One differs: ``scan_bounces``
+changes nothing (the bounce loop is always a Python loop; the JAX package
+pins its two forms equal). The field
 comments name the reference renderer's toggles (src/main.cpp:35-60).
 """
 
@@ -74,8 +74,9 @@ class RenderConfig:
     pair_bdiag: bool = False
     pair_bdiag_tile: int = 1024
     pair_narrow_div: int = 8
-    # Shard-local sorts across chips; the port runs on one device and
-    # raises for any value but 1 (``ops/walk.py``, ``ops/pairs.py``,
+    # S > 1: the walk, pair and binned intersectors sort and compact each
+    # row of the [S, n / S] ray view on its own (the JAX package's
+    # shard-local form; results equal S = 1's but binned's, see
     # ``ops/binned.py``).
     binned_shards: int = 1
     scan_bounces: bool = True

@@ -40,6 +40,8 @@ from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, 
 
 
 def _host(a):
+    if isinstance(a, torch.Tensor) and not a.requires_grad:
+        a = a.cpu()  # a camera moved on the device (ops/camera.orbit_camera)
     return None if a is None else np.asarray(a)
 
 

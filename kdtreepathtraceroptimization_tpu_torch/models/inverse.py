@@ -9,7 +9,7 @@ clamps (albedo, specular and transmittance in [0, 1], emittance >= 0).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,29 +28,47 @@ class TrainState(NamedTuple):
 
 
 def render_loss(materials: MaterialSoA, scene, config: RenderConfig,
-                base_key: Key, iteration: int, target: torch.Tensor) -> torch.Tensor:
+                base_key: Key, iteration: int, target: torch.Tensor,
+                pixels: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """MSE between a one-iteration render and the target radiance [N, 3].
 
     ``scene`` is the port's scene with its tables on ``target``'s device;
-    the render runs there."""
+    the render runs there. With ``pixels`` = (lo, hi) only those pixels
+    are traced, ``target`` holds their rows, and the loss is their sum /
+    (3N) over the film's N pixels: their mean times their share of the
+    film, so that the slabs' losses add up to the film's."""
     radiance = trace_iteration(scene.geoms, materials, scene.mesh, scene.camera,
                                config, base_key, iteration, cmesh=scene.cmesh,
-                               device=target.device, kd=scene.kd)
-    return torch.mean((radiance - target) ** 2)
+                               device=target.device, kd=scene.kd, pixels=pixels)
+    loss = torch.mean((radiance - target) ** 2)
+    if pixels is not None:
+        n = int(scene.camera.resolution[0]) * int(scene.camera.resolution[1])
+        loss = loss * ((pixels[1] - pixels[0]) / n)
+    return loss
 
 
 def make_train_step(scene, config: RenderConfig, target, learning_rate: float = 5e-3,
-                    device=None) -> Tuple[Callable[[], TrainState], Callable]:
+                    device=None, pixels: Optional[Tuple[int, int]] = None,
+                    reduce: Optional[Callable] = None
+                    ) -> Tuple[Callable[[], TrainState], Callable]:
     """Build ``(init_state, step(state, base_key, iteration) -> (state,
     loss))`` on ``device`` (the CUDA device by default).
 
     Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
     square root), as the JAX package's ``optax.adam``. The optimizer
-    updates the state's material tensors in place."""
+    updates the state's material tensors in place.
+
+    ``pixels`` = (lo, hi) trains on that slab of the film (``render_loss``;
+    ``target`` is the whole film's or the slab's), and ``reduce(loss,
+    materials) -> loss``, called between the backward pass and Adam, sums
+    the loss and the gradients over ranks: the ray-axis split's step
+    (``parallel/sharding.make_sharded_train_step``)."""
     device = resolve_device(device)
     use_full_f32()
     scene = scene_from_numpy(scene, device)
     target = to_tensor(target, device).to(torch.float32)
+    if pixels is not None and target.shape[0] != pixels[1] - pixels[0]:
+        target = target[pixels[0]:pixels[1]]
 
     def init_state() -> TrainState:
         materials = materials_to_torch(scene.materials, device, requires_grad=True)
@@ -61,8 +79,11 @@ def make_train_step(scene, config: RenderConfig, target, learning_rate: float = 
     def train_step(state: TrainState, base_key: Key,
                    iteration: int) -> Tuple[TrainState, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        loss = render_loss(state.materials, scene, config, base_key, iteration, target)
+        loss = render_loss(state.materials, scene, config, base_key, iteration, target,
+                           pixels)
         loss.backward()
+        if reduce is not None:
+            loss = reduce(loss, state.materials)
         state.optimizer.step()
         m = state.materials
         with torch.no_grad():

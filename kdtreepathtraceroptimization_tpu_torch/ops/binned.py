@@ -1,7 +1,7 @@
 """Binned cluster intersection: per-bounce ray binning by nearest feasible
 block.
 
-The JAX package's ``ops/binned.py`` in PyTorch, for one device, with its
+The JAX package's ``ops/binned.py`` in PyTorch, with its
 TPU kernel ported to CUDA (``csrc/binned_argmin.cu``, which skips aligned
 groups of blocks whose bounding sphere cannot beat a ray's best entry).
 Rays are binned by the id of the feasible block of least bounding-sphere
@@ -27,6 +27,13 @@ Per call:
 The result equals brute force over the mesh. Each kernel's wrapper runs
 the plain PyTorch version on CPU tensors and the CUDA kernel on CUDA
 tensors; there is no other fallback.
+
+With ``binned_shards`` = S > 1 the sorts and the repair's compaction run
+row by row on the [S, n / S] ray view (the JAX package's shard-local
+form). The tiles then change, and with them whether the rounds (the
+19-FMA sparse test) or the sweep (the dense 40-FMA test) resolves a ray,
+so a ray's t may differ from S = 1's in its last bits; ids agree but where
+two triangles tie that closely.
 """
 
 from __future__ import annotations
@@ -129,10 +136,17 @@ def argmin_bins(x, cull_w, blk):
 # ---------------------------------------------------------------------------
 
 
-def _bin_rank(bins):
-    """Stable sort rank: perm gathers rays into key order, rank = perm^-1."""
-    _, perm = torch.sort(bins, stable=True)
-    iota = torch.arange(bins.shape[0], device=bins.device)
+def _bin_rank(bins, shards: int = 1):
+    """Stable sort rank: perm gathers rays into key order, rank = perm^-1.
+
+    ``shards`` > 1 sorts each row of the [shards, n / shards] view on its
+    own (the JAX package's shard-local sort): no ray leaves its row. perm
+    and rank stay flat indices into [n]."""
+    n = bins.shape[0]
+    m = n // shards
+    _, perm = torch.sort(bins.reshape(shards, m), dim=1, stable=True)
+    perm = (perm + torch.arange(shards, device=bins.device)[:, None] * m).reshape(n)
+    iota = torch.arange(n, device=bins.device)
     rank = torch.empty_like(perm).scatter_(0, perm, iota)
     return rank, perm
 
@@ -147,11 +161,12 @@ def _apply_perm(a, perm):
 # ---------------------------------------------------------------------------
 
 
-def _binned_pass(x, cm: "cl.ClusterMesh", tile: int, rounds: int):
+def _binned_pass(x, cm: "cl.ClusterMesh", tile: int, rounds: int, shards: int = 1):
     """One binned pass over the [n, 8] records ``x`` (n a multiple of
-    ``tile``) -> (bt, btri, flagged), each [n] in the order of ``x``."""
+    ``tile * shards``) -> (bt, btri, flagged), each [n] in the order of
+    ``x``; the binning sorts each of the ``shards`` rows on its own."""
     bins = argmin_bins(x, cm.cull_w, cm.blk)
-    rank, perm = _bin_rank(bins)
+    rank, perm = _bin_rank(bins, shards)
     x = _apply_perm(x, perm)
     t0s = x[:, 6].contiguous()
     acts = x[:, 7].contiguous()
@@ -176,10 +191,6 @@ def intersect_mesh_binned(origin, direction, cm: "cl.ClusterMesh", config,
     Same contract as ``cluster.intersect_mesh_cluster``. With
     ``collect_stats`` the call also returns how many rays flagged and
     which repair ran ("none", "compact" or "sweep")."""
-    if config.binned_shards != 1:
-        raise NotImplementedError(
-            "binned_shards != 1 (a sort local to each chip's shard) is not "
-            "ported: the port runs on one device")
     origin = vm.as_rows(origin)
     direction = vm.as_rows(direction)
     n = origin.shape[0]
@@ -187,38 +198,48 @@ def intersect_mesh_binned(origin, direction, cm: "cl.ClusterMesh", config,
     kp = cm.n_blocks
     origin, direction, t0, act = cl._pad_rays(origin, direction, cm, tile, t_init, active)
     npad = origin.shape[0]
+    # binned_shards = S > 1: every sort and the repair's compaction run
+    # row by row on the [S, npad / S] view, where the rows are whole tiles
+    # (else S = 1, as JAX does)
+    shards = max(1, config.binned_shards)
+    if npad % (tile * shards):
+        shards = 1
+    ns = npad // shards
 
     # Dead lanes: zero direction -> every MT determinant 0 -> never a hit
     # (their cull is masked by act too).
     direction = torch.where(act[:, None], direction, 0.0)
     x = torch.cat([origin, direction, t0[:, None], act.to(torch.float32)[:, None]], dim=1)
 
-    bt, btri, flagged = _binned_pass(x, cm, tile, config.binned_rounds)
+    bt, btri, flagged = _binned_pass(x, cm, tile, config.binned_rounds, shards)
 
     # Exactness repair. A flagged ray's tile had more feasible blocks than
-    # its rounds: compact the flagged rays, bound them by their best t, and
-    # rerun them with every feasible block of their tile (R = K).
-    mr = min(REPAIR_LANES, npad)
-    count = int(flagged.sum())
+    # its rounds: compact each row's flagged rays, bound them by their best
+    # t, and rerun them with every feasible block of their tile (R = K).
+    mr = min(REPAIR_LANES, ns)
+    counts = flagged.reshape(shards, ns).sum(dim=1)
+    counts_h = counts.tolist()  # one host read
+    count = sum(counts_h)
     repair = "none"
-    if 0 < count <= mr:
+    if 0 < max(counts_h) <= mr:
         repair = "compact"
-        _, pos = torch.sort((~flagged).to(torch.int32), stable=True)  # flagged first
-        pos = pos[:mr]
-        live = torch.arange(mr, device=x.device) < count
+        # flagged first in each row
+        _, pos = torch.sort((~flagged).to(torch.int32).reshape(shards, ns), dim=1, stable=True)
+        pos = (pos[:, :mr] + torch.arange(shards, device=x.device)[:, None] * ns).reshape(-1)
+        live = (torch.arange(mr, device=x.device)[None, :] < counts[:, None]).reshape(-1)
         livef = live.to(torch.float32)
         x2 = x[pos]
         bt_g = bt[pos]
         x2[:, 6] = torch.where(live, bt_g, 0.0)
         x2[:, 7] *= livef
         x2[:, 3:6] *= livef[:, None]
-        bt2, btri2, _ = _binned_pass(x2, cm, min(tile, mr), kp)
+        bt2, btri2, _ = _binned_pass(x2, cm, min(tile, mr), kp, shards)
         upd = live & (btri2 >= 0)
         bt = bt.index_copy(0, pos, torch.where(upd, bt2, bt_g))
         btri = btri.index_copy(0, pos, torch.where(upd, btri2, btri[pos]))
-    elif count > mr:
-        # More flagged rays than the buffer: the bounded sweep of each
-        # flagged ray over every real triangle.
+    elif count:
+        # More flagged rays in a row than the buffer: the bounded sweep of
+        # each flagged ray over every real triangle.
         repair = "sweep"
         bt, btri = cl.sweep(cl.flagged_rows(flagged, count), cl._ray_rows(x), bt, btri, cm,
                             tile)

@@ -114,14 +114,20 @@ def pan_camera(camera: Camera, dx: float = 0.0, dy: float = 0.0,
 
 
 def generate_rays(camera: Camera, config: RenderConfig, key: Key,
-                  trace_depth: int, device) -> RaySoA:
+                  trace_depth: int, device, pixels=None) -> RaySoA:
     """One camera ray per pixel of ``camera`` on ``device``; differentiable
-    in position, view, up, right and pixel_length where they are tensors."""
+    in position, view, up, right and pixel_length where they are tensors.
+
+    ``pixels`` = (lo, hi) makes the rays of pixels lo .. hi - 1 only (a
+    rank's slab of the film, ``parallel/sharding.py``). Every random
+    stream is keyed by the pixel index, so a slab's rays equal the same
+    rows of the full film's bit for bit."""
     res_x = int(camera.resolution[0])
     res_y = int(camera.resolution[1])
-    n = res_x * res_y
+    lo, hi = (0, res_x * res_y) if pixels is None else (int(pixels[0]), int(pixels[1]))
+    n = hi - lo
 
-    idx = torch.arange(n, dtype=torch.int32, device=device)
+    idx = torch.arange(lo, hi, dtype=torch.int32, device=device)
     x = (idx % res_x).to(torch.float32)
     y = (idx // res_x).to(torch.float32)
 
@@ -136,8 +142,7 @@ def generate_rays(camera: Camera, config: RenderConfig, key: Key,
 
     # Slots 3-5 feed only depth of field; each slot's stream does not
     # depend on how many are drawn.
-    u = uniform_cols(key, n, 6 if config.dof_angle > 0.0 else 3,
-                     device=device)
+    u = uniform_cols(key, n, 6 if config.dof_angle > 0.0 else 3, lane=idx)
 
     if config.antialias:
         # "cheap jitter" (pathtrace.cu:341-350): a random positive-octant

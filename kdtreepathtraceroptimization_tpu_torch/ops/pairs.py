@@ -1,6 +1,6 @@
 """Pair-list intersection: work scheduled per (ray, block) pair.
 
-The JAX package's ``ops/pairs.py`` in PyTorch, for one device, with its
+The JAX package's ``ops/pairs.py`` in PyTorch, with its
 three TPU kernels ported to CUDA (``csrc/pair_extract.cu``,
 ``csrc/pair_runs.cu`` and, with ``pair_bdiag``, ``csrc/pair_bdiag.cu``).
 A tile-shared walk (``ops/walk.py``) pays per
@@ -283,28 +283,33 @@ def pair_bdiag(blk_s, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int):
 
 
 def _pair_pass(ids, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int,
-               bdiag: bool = False):
+               bdiag: bool = False, shards: int = 1):
     """Test every (ray, block) pair in ``ids`` [n, F] (kp = empty slot);
     return each ray's nearest (t [n], tri [n]) over them (BIG / -1 for
     none). ``feat`` [n, 16] holds the rays' _feat16t records; ``bdiag``
-    takes kernel 7 for the pair test in place of kernel 6."""
+    takes kernel 7 for the pair test in place of kernel 6. ``shards`` > 1
+    groups the pairs of each row of the [shards, n / shards] view on its
+    own (each row padded to whole pair tiles); a pair's result does not
+    depend on its neighbours, so the results equal one group's."""
     n, F = ids.shape
     kp = cm.n_blocks
-    p = n * F
+    S = shards
+    m = n // S
+    p = m * F
     pp = -(-p // ptile) * ptile
-    flat = ids.reshape(p)
+    flat = ids.reshape(S, p)
     if pp != p:
-        flat = torch.cat([flat, torch.full((pp - p,), kp, dtype=torch.int32,
-                                           device=ids.device)])
+        flat = torch.cat([flat, torch.full((S, pp - p), kp, dtype=torch.int32,
+                                           device=ids.device)], dim=1)
     # A stable sort by block id: the order of JAX's (id << bits | index)
     # keys, with the permutation at hand.
-    blk_s, src = torch.sort(flat, stable=True)
-    featp = feat[torch.clamp_max(src // F, n - 1)]
+    blk_s, src = torch.sort(flat, dim=1, stable=True)
+    ray = torch.clamp_max(src // F, m - 1) + torch.arange(S, device=ids.device)[:, None] * m
+    featp = feat[ray.reshape(S * pp)]
     runner = pair_bdiag if bdiag else pair_runs
-    packed = runner(blk_s, featp, cm, ptile, kreal)
-    slots = torch.empty_like(packed)
-    slots[src] = packed
-    t_p, loc_p = _unpack_tl(slots[:p].reshape(n, F))
+    packed = runner(blk_s.reshape(S * pp), featp, cm, ptile, kreal)
+    slots = torch.empty_like(packed).reshape(S, pp).scatter_(1, src, packed.reshape(S, pp))
+    t_p, loc_p = _unpack_tl(slots[:, :p].reshape(n, F))
 
     # Winner select, one slot column at a time: the nearest truncated t,
     # the first slot among equals.
@@ -324,45 +329,59 @@ def _pair_pass(ids, feat, cm: "cl.ClusterMesh", ptile: int, kreal: int,
 
 
 # ---------------------------------------------------------------------------
-# compaction helpers (the JAX package's single-shard branches)
+# compaction helpers: row-local on the [shards, ns] view of the rays
 # ---------------------------------------------------------------------------
 
 
-def _compact_all(todo):
-    """Flagged-first stable permutation of [ns] rays, and the flagged
-    count (read on the host: it sets the pass's round count)."""
-    _, pos = torch.sort((~todo).to(torch.int32), stable=True)
-    return pos, int(todo.sum())
+def _compact_all(todo, shards: int = 1):
+    """Each row's flagged-first stable permutation of the [shards, ns] view
+    of ``todo`` (row-local positions [shards, ns]), its flagged counts
+    [shards] and those counts read on the host (one read: the largest sets
+    the pass's round count)."""
+    rows = todo.reshape(shards, -1)
+    _, pos = torch.sort((~rows).to(torch.int32), dim=1, stable=True)
+    counts = rows.sum(dim=1)
+    return pos, counts, counts.tolist()
 
 
 def _pad_positions(pos, total: int):
-    """Pad the permutation to ``total`` with unique out-of-range
-    positions ns, ns + 1, ...: slices never run short, and the scatter
-    drops them."""
-    ns = pos.shape[0]
+    """Flat positions [S, total] of the row-local permutation ``pos`` [S,
+    ns]: row r's position p is r * ns + p, and each row is padded to
+    ``total`` with unique positions past the S * ns rays, so slices never
+    run short and the scatter drops the pads."""
+    S, ns = pos.shape
+    base = torch.arange(S, device=pos.device)[:, None]
+    flat = pos + base * ns
     if total == ns:
-        return pos
-    return torch.cat([pos, torch.arange(ns, total, dtype=pos.dtype, device=pos.device)])
+        return flat
+    pad = torch.arange(total - ns, device=pos.device)[None, :] + S * ns + base * (total - ns)
+    return torch.cat([flat, pad], dim=1)
 
 
 def _take_rows(a, pos):
-    """Rows ``a[pos]``; out-of-range (pad) positions read the last row, as
-    a JAX gather clamps them."""
+    """Rows ``a[pos]``; pad positions read the last row, as a JAX gather
+    clamps them (the callers mask them)."""
     return a[torch.clamp_max(pos, a.shape[0] - 1)]
 
 
 def _scatter_slice(pos_pad, k: int, m: int, updates, olds):
-    """Write round k's updates to positions pos_pad[k*m:(k+1)*m] of the
-    olds; pad positions (>= ns, all below ns + m) land in a tail that is
-    cut off, as JAX's mode="drop" scatter drops them."""
-    pos = pos_pad[k * m:(k + 1) * m]
+    """Write round k's updates to positions pos_pad[:, k*m:(k+1)*m] of the
+    olds; pad positions land in a tail that is cut off, as JAX's
+    mode="drop" scatter drops them."""
+    pos = pos_pad[:, k * m:(k + 1) * m].reshape(-1)
     out = []
     for old, upd in zip(olds, updates):
-        ns = old.shape[0]
-        ext = torch.cat([old, old.new_empty((m,))])
+        n = old.shape[0]
+        ext = torch.cat([old, old.new_empty((pos_pad.numel() - n,))])
         ext.index_copy_(0, pos, upd)
-        out.append(ext[:ns])
+        out.append(ext[:n])
     return out
+
+
+def _live(counts, k: int, m: int):
+    """[S * m] lanes of round k that hold a flagged ray of their row."""
+    iota = torch.arange(k * m, (k + 1) * m, device=counts.device)
+    return (iota[None, :] < counts[:, None]).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -380,11 +399,14 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     measurement only: results are then exact only for proven rays. With
     ``collect_stats`` the call also returns its executed rounds and stage
     sizes.
+
+    With ``config.binned_shards`` = S > 1 the rays are padded to whole
+    ``cluster_tile * S`` and every data-movement stage (the narrowing
+    compaction, the pair grouping, the result un-sort, the repair
+    compactions) runs row by row on the [S, n / S] view, with the pass-2
+    and pass-3 buffers a 1/S share each: the JAX package's shard-local
+    form. Per-ray results do not depend on the batch, so they equal S = 1's.
     """
-    if config.binned_shards != 1:
-        raise NotImplementedError(
-            "binned_shards != 1 (shard-local pair grouping) is not ported: "
-            "the port runs on one device")
     origin = vm.as_rows(origin)
     direction = vm.as_rows(direction)
     n = origin.shape[0]
@@ -396,9 +418,11 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     ptile = config.pair_bdiag_tile if bdiag else config.pair_tile
     kp = cm.n_blocks
     kreal = cm.n_real_blocks
+    S = max(1, int(config.binned_shards))
 
-    origin, direction, t0, act = cl._pad_rays(origin, direction, cm, tile, t_init, active)
-    ns = origin.shape[0]
+    origin, direction, t0, act = cl._pad_rays(origin, direction, cm, tile * S, t_init, active)
+    npad = origin.shape[0]
+    ns = npad // S
 
     direction = torch.where(act[:, None], direction, 0.0)
     x = wk._ray16(origin, direction, t0, act.to(torch.float32))
@@ -407,22 +431,21 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     ids, lbov, cnt, feat = extract(x, cm.slab, cm.blk, F)
 
     # Narrowing: only rays with a feasible block make pairs. They are
-    # compacted into a buffer of about ns / pair_narrow_div lanes, looped
-    # when more rays than that are mesh-active (primary bounces).
+    # compacted into a buffer of about ns / pair_narrow_div lanes a row,
+    # looped when more rays than that are mesh-active (primary bounces).
     ndiv = max(1, config.pair_narrow_div)
     m1 = min(ns, max(ptile, -(-ns // ndiv // ptile) * ptile))
     bt = t0.clone()
-    btri = torch.full((ns,), -1, dtype=torch.int32, device=device)
-    pos1, nr1 = _compact_all(act & (cnt > 0))
+    btri = torch.full((npad,), -1, dtype=torch.int32, device=device)
+    pos1, cnt1, nr1 = _compact_all(act & (cnt > 0), S)
     pos1p = _pad_positions(pos1, -(-ns // m1) * m1)
-    iota1 = torch.arange(m1, device=device)
-    k1 = -(-nr1 // m1)
+    k1 = -(-max(nr1) // m1)
     for k in range(k1):
-        pos = pos1p[k * m1:(k + 1) * m1]
-        live = iota1 < nr1 - k * m1
+        pos = pos1p[:, k * m1:(k + 1) * m1].reshape(-1)
+        live = _live(cnt1, k, m1)
         ids_c = torch.where(live[:, None], _take_rows(ids, pos), kp)
         ft_c = _take_rows(feat, pos) * live.to(torch.float32)[:, None]
-        t1, tri1 = _pair_pass(ids_c, ft_c, cm, ptile, kreal, bdiag)
+        t1, tri1 = _pair_pass(ids_c, ft_c, cm, ptile, kreal, bdiag, S)
         bt_pos = _take_rows(bt, pos)
         upd = live & (t1 <= bt_pos)
         bt, btri = _scatter_slice(
@@ -435,30 +458,29 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     unproven = act & (lbov < bt) & (cnt > F)
 
     # pass 2: the window of slots F..F2 for the unproven rays, in rounds of
-    # m2; rays still unproven after it gather in ``hard`` for pass 3.
-    m2 = min(max(ptile, REPAIR_LANES), ns)
-    k2 = nr2 = nr3 = 0
+    # m2 a row; rays still unproven after it gather in ``hard`` for pass 3.
+    m2 = min(max(ptile, REPAIR_LANES // S), ns)
+    k2, nr2, nr3 = 0, [0], [0]
     if max_passes >= 2 and F < F2:
-        pos2, nr2 = _compact_all(unproven)
+        pos2, cnt2, nr2 = _compact_all(unproven, S)
         pos2p = _pad_positions(pos2, -(-ns // m2) * m2)
-        iota2 = torch.arange(m2, device=device)
-        hard = torch.zeros((ns,), dtype=torch.bool, device=device)
-        k2 = -(-nr2 // m2)
+        hard = torch.zeros((npad,), dtype=torch.bool, device=device)
+        k2 = -(-max(nr2) // m2)
         for k in range(k2):
-            pos = pos2p[k * m2:(k + 1) * m2]
-            live = iota2 < nr2 - k * m2
+            pos = pos2p[:, k * m2:(k + 1) * m2].reshape(-1)
+            live = _live(cnt2, k, m2)
             livef = live.to(torch.float32)
             # The original t0 keeps the first F ids equal to pass 1's, so
             # slots F..F2 continue exactly where pass 1 stopped.
             x2 = _take_rows(x, pos)
             x2[:, 7] *= livef
             x2[:, 3:6] *= livef[:, None]
-            ids2, lbov2, cnt2, ft2 = extract(x2, cm.slab, cm.blk, F2, split=True)
+            ids2, lbov2, cnt2w, ft2 = extract(x2, cm.slab, cm.blk, F2, split=True)
             bt2g = torch.where(live, _take_rows(bt, pos), 0.0)
             ft2[:, 10] = bt2g  # the window's bound: the current best
-            t2, tri2 = _pair_pass(ids2[:, F:], ft2, cm, ptile, kreal, bdiag)
+            t2, tri2 = _pair_pass(ids2[:, F:], ft2, cm, ptile, kreal, bdiag, S)
             upd = live & (t2 < bt2g)
-            still = live & (lbov2 < torch.where(upd, t2, bt2g)) & (cnt2 > F2)
+            still = live & (lbov2 < torch.where(upd, t2, bt2g)) & (cnt2w > F2)
             bt, btri, hard = _scatter_slice(
                 pos2p, k, m2,
                 [torch.where(upd, t2, _take_rows(bt, pos)),
@@ -467,19 +489,19 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
                 [bt, btri, hard])
         unproven = hard
 
-    # pass 3: the exhaustive walk over what is left, in rounds of m3. It
-    # covers each ray's whole feasible list, so every round proves its rays.
-    m3 = min(max(256, WALK_LANES), ns)
+    # pass 3: the exhaustive walk over what is left, in rounds of m3 a row.
+    # It covers each ray's whole feasible list, so every round proves its
+    # rays.
+    m3 = min(max(256, WALK_LANES // S), ns)
     tile3 = min(tile, m3, wk.vmem_tile_cap(kp))
     k3 = 0
     if max_passes >= 3 and bool(unproven.any()):  # most waves: nothing left
-        pos3, nr3 = _compact_all(unproven)
+        pos3, cnt3, nr3 = _compact_all(unproven, S)
         pos3p = _pad_positions(pos3, -(-ns // m3) * m3)
-        iota3 = torch.arange(m3, device=device)
-        k3 = -(-nr3 // m3)
+        k3 = -(-max(nr3) // m3)
         for k in range(k3):
-            pos = pos3p[k * m3:(k + 1) * m3]
-            live = iota3 < nr3 - k * m3
+            pos = pos3p[:, k * m3:(k + 1) * m3].reshape(-1)
+            live = _live(cnt3, k, m3)
             livef = live.to(torch.float32)
             x3 = _take_rows(x, pos)
             x3[:, 6] = torch.where(live, _take_rows(bt, pos), 0.0)
@@ -488,7 +510,7 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
             te = wk.slab_cull(x3, cm.slab, cm.blk, tile3)
             sel, lb, nsel = wk._full_select(te)
             r3 = mxu_bf.ray_features(x3[:, 0:3], x3[:, 3:6]) * livef[:, None]
-            r3 = torch.cat([r3, torch.zeros((m3, 6), dtype=torch.float32, device=device)],
+            r3 = torch.cat([r3, torch.zeros((S * m3, 6), dtype=torch.float32, device=device)],
                            dim=1)
             t3, tri3 = wk.walk(sel, lb, nsel, r3, x3[:, 6].contiguous(),
                                x3[:, 7].contiguous(), cm, tile3)
@@ -504,10 +526,11 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     zero = torch.zeros((n,), dtype=torch.float32, device=device)
     hit = TriHit(t=bt, tri=btri, u=zero, v=zero)
     if collect_stats:
+        # rounds and stage sizes are a row's: with S > 1, one device's work
         stats = {
-            "mesh_active": nr1, "unproven_after_pass1": nr2, "pass3_rays": nr3,
-            "n1_rounds": k1, "p2_rounds": k2, "p3_rounds": k3,
-            "m1": m1, "m2": m2, "m3": m3, "pair_slots": F,
+            "mesh_active": sum(nr1), "unproven_after_pass1": sum(nr2),
+            "pass3_rays": sum(nr3), "n1_rounds": k1, "p2_rounds": k2, "p3_rounds": k3,
+            "m1": m1, "m2": m2, "m3": m3, "pair_slots": F, "shards": S,
             "pair_rows": k1 * m1 * F + k2 * m2 * (F2 - F) + k3 * m3,
         }
         return hit, stats

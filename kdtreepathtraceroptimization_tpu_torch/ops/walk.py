@@ -316,18 +316,19 @@ def intersect_mesh_walk(origin, direction, cm: "cl.ClusterMesh", config,
     ``t_init`` bounds the cull and the per-ray running min (analytic geoms
     first); ``active`` lanes cull nothing and sort to the back.
     """
-    if config.binned_shards != 1:
-        raise NotImplementedError(
-            "binned_shards != 1 (a sort local to each chip's shard) is not "
-            "ported: the port runs on one device")
     origin = vm.as_rows(origin)
     direction = vm.as_rows(direction)
     n = origin.shape[0]
     tile = min(config.cluster_tile, vmem_tile_cap(cm.slab.shape[1]))
     origin, direction, t0, act = cl._pad_rays(origin, direction, cm, tile, t_init, active)
 
+    # binned_shards = S > 1 sorts each row of the [S, n / S] view on its
+    # own, where the rows are whole tiles (else S = 1, as JAX does)
+    shards = max(1, config.binned_shards)
+    if origin.shape[0] % (tile * shards):
+        shards = 1
     key = _coherence_key(origin, direction, act, cm.root_min, cm.root_max)
-    rank, perm = _bin_rank(key)
+    rank, perm = _bin_rank(key, shards)
 
     direction = torch.where(act[:, None], direction, 0.0)
     x = _ray16(origin, direction, t0, act.to(torch.float32))

@@ -117,6 +117,12 @@ def with_resolution(scene: SceneData, width: int, height: int) -> SceneData:
     return scene._replace(camera=new_cam)
 
 
+def replace_camera(scene: SceneData, camera) -> SceneData:
+    """Return the scene with ``camera`` swapped in (the interactive orbit
+    and pan rebuild the camera through ``ops.camera.derive_camera``)."""
+    return scene._replace(camera=camera)
+
+
 def load_scene(
     path: str,
     obj_path: Optional[str] = None,

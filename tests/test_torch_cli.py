@@ -108,13 +108,14 @@ def test_cli_resumes_a_jax_checkpoint(tmp_path):
     np.testing.assert_allclose(got["accum"] / 4, own["accum"] / 4, atol=ATOL)
 
 
-def test_cli_outputs(tmp_path, capsys):
+def test_cli_outputs(tmp_path, capsys, monkeypatch):
     """--benchmark prints the JAX CLI's JSON line; the PNG (read back by
     read_png) and the .hdr are the tonemapped film and write_hdr's file of
     it; --live draws frames; --profile writes a trace; --print-kd-stats
     prints the JAX CLI's statistics and writes its box dump; --viz-kd
     writes the JAX package's render_kd_boxes image within one 8-bit step;
-    --interactive exits with 2."""
+    --interactive with no key for --spp 3 iterations writes the PNG of the
+    same 3-iteration film."""
     obj = _mesh_obj(tmp_path, 2, 2.0)
     args = [CORNELL, obj, *BASE]
     rc, film = _run(cli.main, tmp_path / "a", args + [
@@ -154,7 +155,13 @@ def test_cli_outputs(tmp_path, capsys):
     # which wants [N, 3] rows (JAX cli.py:189-193): it raises
     with pytest.raises(AttributeError):
         _run(jcli.main, tmp_path / "vj", args + ["--viz-kd", "-o", "viz.png"], port=False)
-    assert _run(cli.main, tmp_path / "i", args + ["--interactive"])[0] == 2
+    from kdtreepathtraceroptimization_tpu_torch.render import interactive
+
+    monkeypatch.setattr(interactive, "_read_key", lambda timeout_s: None)
+    assert _run(cli.main, tmp_path / "i", args + ["--interactive", "--spp", "3", "-o",
+                                                  "inter.png"])[0] == 0
+    np.testing.assert_array_equal(read_png(str(tmp_path / "i" / "inter.png")),
+                                  tonemap_srgb_u8(img))
 
 
 def test_cli_ray_cache_follows_seed(tmp_path):

@@ -948,3 +948,77 @@ def test_reordered_and_cached_pair_renders_bit_equal_on_cuda(cuda, tmp_path):
     films = [make_render_fn(scene, RenderConfig(**base, ray_cache=cache), seed=0, device=cuda)(
         torch.zeros((64 * 64, 3), device=cuda), prng_key(0), 1) for cache in (False, True)]
     assert torch.equal(films[0], films[1])
+
+
+# --------------------------------------------------------------------------
+# the ray-axis split and binned_shards, on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("route", ["pairs", "walk"])
+def test_slabs_bit_equal_on_cuda(cuda, tmp_path, route):
+    """The slabs of worlds 1, 2, 3 and 4 (64x64, depth 4, AA on, 5,120
+    triangles), each rendered on its own by make_render_fn(pixels=),
+    concatenate to make_render_fn's film bit for bit: the streams are keyed
+    by pixel and the intersectors exact per ray."""
+    import os
+
+    from kdtreepathtraceroptimization_tpu_torch.ops.rng import prng_key
+    from kdtreepathtraceroptimization_tpu_torch.parallel import sharding
+    from kdtreepathtraceroptimization_tpu_torch.render.integrator import make_render_fn
+    from kdtreepathtraceroptimization_tpu_torch.scene.parser import load_scene, with_resolution
+    from kdtreepathtraceroptimization_tpu_torch.utils.procmesh import write_obj
+
+    verts, faces = icosphere(4, radius=2.0, center=(0.0, 3.0, 0.0))
+    obj = str(tmp_path / "ico4.obj")
+    write_obj(obj, verts, faces)
+    cornell = os.path.join(os.path.dirname(__file__), "..", "scenes", "cornell.txt")
+    scene = with_resolution(load_scene(cornell, obj_path=obj, device=cuda), 64, 64)
+    kw = {} if route == "pairs" else dict(cluster=True, cluster_walk=True, cluster_pairs=False)
+    cfg = RenderConfig(trace_depth=4, antialias=True, cluster_tile=256, **kw)
+    full = make_render_fn(scene, cfg, device=cuda)(torch.zeros((4096, 3), device=cuda),
+                                                   prng_key(0), 1)
+    assert full.mean() > 0
+    for world in (1, 2, 3, 4):
+        parts = []
+        for r in range(world):
+            lo, hi = sharding.slab(r, world, 4096)
+            parts.append(make_render_fn(scene, cfg, device=cuda, pixels=(lo, hi))(
+                torch.zeros((hi - lo, 3), device=cuda), prng_key(0), 1))
+        assert torch.equal(torch.cat(parts), full), world
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("route", ["pairs", "walk", "binned"])
+def test_binned_shards_on_cuda(cuda, route, shards):
+    """binned_shards = S on the card against S = 1 on 16,384 rays at a
+    5,120-triangle sphere in blocks of 64, a fifth of them dead, a third
+    with a t bound, binned with 2 rounds (its repair runs): the pair list
+    and the walk bit for bit; binned ids on >= 99.99% of rays and t within
+    1e-5 relative (a ray's tile may change whether the rounds' sparse test
+    or the sweep's dense one resolves it)."""
+    mesh = _mesh(4)
+    rng = np.random.default_rng(11)
+    n = 16384
+    o = rng.normal(size=(n, 3)).astype(np.float32) * 4.0
+    d = np.array([0.3, -0.2, 0.5], np.float32) + rng.normal(size=(n, 3)) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o, d = torch.tensor(o, device=cuda), torch.tensor(d, device=cuda)
+    act = torch.arange(n, device=cuda) % 5 != 0
+    t0 = torch.where(torch.arange(n, device=cuda) % 3 == 0, 5.0, 1e30)
+    cm = build_cluster_mesh(mesh, block=64, device=cuda)
+    kw = {"pairs": dict(cluster=True, cluster_pairs=True),
+          "walk": dict(cluster=True, cluster_walk=True, cluster_pairs=False),
+          "binned": dict(cluster=True, cluster_pairs=False, cluster_binned=True,
+                         binned_rounds=2)}[route]
+    fn = {"pairs": tpairs.intersect_mesh_pairs, "walk": twalk.intersect_mesh_walk,
+          "binned": tbinned.intersect_mesh_binned}[route]
+    base, hit = (fn(o, d, cm, RenderConfig(cluster_tile=256, binned_shards=s, **kw),
+                    t_init=t0, active=act) for s in (1, shards))
+    assert int((base.tri >= 0).sum()) > 2000
+    if route != "binned":
+        assert torch.equal(hit.tri, base.tri) and torch.equal(hit.t, base.t)
+    else:
+        assert (hit.tri == base.tri).float().mean().item() >= 0.9999
+        both = (hit.tri >= 0) & (base.tri >= 0)
+        torch.testing.assert_close(hit.t[both], base.t[both], rtol=1e-5, atol=0)

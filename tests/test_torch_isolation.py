@@ -31,7 +31,9 @@ _CHILD = textwrap.dedent("""
     # the KD route's modules and the command line's are among them
     for name in ("accel.kdtree", "accel.kdtools", "accel.native", "ops.traverse", "cli",
                  "ops.compaction", "ops.kdviz", "render.film", "utils.image",
-                 "utils.termview"):
+                 "utils.termview", "render.interactive", "utils.fault",
+                 "parallel.sharding", "parallel.multihost", "tools.benchmarks",
+                 "tools.charts", "tools.goldens", "tools.scaling", "tools.scene_writer"):
         assert pkg.__name__ + "." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

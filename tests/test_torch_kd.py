@@ -225,12 +225,12 @@ def test_mesh_kd_48_golden(tmp_path):
     where the golden's jit-fused t is an ulp from the port's
     (``test_mesh_pairs_48_golden_pixels_branch_under_jit``); the mesh
     plays no part in it."""
-    scene = tparser.with_resolution(
-        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 2, 2.0), device="cpu"),
-        48, 48)
-    cfg = TCfg(trace_depth=4, enable_kd=True)
+    from kdtreepathtraceroptimization_tpu_torch.tools import goldens
+
+    make_scene, cfg, _ = goldens.CASES["mesh_kd_48"]
+    scene = make_scene("cpu")
     assert mesh_route(scene.mesh, scene.cmesh, cfg, scene.kd) == "kd"
-    img = render(scene, cfg, spp=8, seed=0, device="cpu").numpy()
+    img = goldens.render_case("mesh_kd_48", "cpu")
     diff = np.abs(img - np.load(os.path.join(GOLDENS, "mesh_kd_48.npy")))
     off = np.flatnonzero((diff > 2e-3).any(axis=-1))
     assert set(off.tolist()) <= set(JIT_BRANCHED_PIXELS), off

@@ -543,10 +543,19 @@ def test_pairs_t_init_and_active_masking():
     (dict(binned_shards=4), "binned_shards"),
 ])
 def test_pairs_unported_options_raise(kw, match):
+    """The option once refused (``match`` names it) now gives the default's
+    hits bit for bit: binned_shards = 4 groups each row of the [4, n / 4]
+    view on its own, padding the rays to whole cluster_tile * 4."""
     _, _, tcm = _tables(1)
-    o, d = _rays(256, seed=9)
-    with pytest.raises(NotImplementedError, match=match):
-        tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(cluster_tile=256, **kw))
+    o, d = _rays(1000, seed=9)
+    cfg = TCfg(cluster_tile=256, pair_slots=2)
+    base = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, cfg)
+    hit, stats = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(cluster_tile=256,
+                                                                      pair_slots=2, **kw),
+                                             collect_stats=True)
+    assert match in kw and stats["shards"] == kw["binned_shards"]
+    assert (hit.tri >= 0).sum() > 20
+    assert torch.equal(hit.tri, base.tri) and torch.equal(hit.t, base.t)
 
 
 def test_default_config_routes_meshes_to_pairs(tmp_path):
@@ -580,11 +589,9 @@ def test_mesh_pairs_48_golden(tmp_path):
     wall, and their paths branch there
     (``test_mesh_pairs_48_golden_pixels_branch_under_jit``). The port
     computes unfused, as the JAX package does when run eagerly."""
-    scene = tparser.with_resolution(
-        tparser.load_scene(CORNELL, obj_path=_mesh_obj(tmp_path, 4, 2.0),
-                           device="cpu"), 48, 48)
-    img = render(scene, TCfg(trace_depth=4, cluster_tile=256, **PAIRS), spp=8,
-                 seed=0, device="cpu").numpy()
+    from kdtreepathtraceroptimization_tpu_torch.tools import goldens
+
+    img = goldens.render_case("mesh_pairs_48", "cpu")
     diff = np.abs(img - np.load(os.path.join(GOLDENS, "mesh_pairs_48.npy")))
     off = np.flatnonzero((diff > 2e-3).any(axis=-1))
     assert set(off.tolist()) <= set(JIT_BRANCHED_PIXELS), off

@@ -22,6 +22,7 @@ from kdtreepathtraceroptimization_tpu_torch.render.integrator import (
 from kdtreepathtraceroptimization_tpu_torch.ops.rng import prng_key
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
 from kdtreepathtraceroptimization_tpu_torch.utils.image import write_png
+from kdtreepathtraceroptimization_tpu_torch.tools import goldens
 from kdtreepathtraceroptimization_tpu_torch.utils.procmesh import icosphere, write_obj
 
 HERE = os.path.dirname(__file__)
@@ -57,9 +58,7 @@ def test_walk_render_matches_jax(tmp_path):
 def test_cornell_64_golden():
     """The analytic-only golden case (tools/goldens.py cornell_64) at the
     golden test's per-pixel atol."""
-    scene = tparser.with_resolution(tparser.load_scene(CORNELL, device="cpu"), 64, 64)
-    img = render(scene, TCfg(trace_depth=8, antialias=True), spp=8, seed=0,
-                 device="cpu").numpy()
+    img = goldens.render_case("cornell_64", "cpu")
     np.testing.assert_allclose(img, np.load(os.path.join(GOLDENS, "cornell_64.npy")),
                                atol=2e-3)
 
@@ -76,9 +75,7 @@ def test_cornell_spec_64_golden():
     """The analytic scene with subsurface scattering, no AA
     (tools/goldens.py cornell_spec_64): every pixel within the golden
     test's atol 2e-3 but exactly the jit-branched ones."""
-    scene = tparser.with_resolution(tparser.load_scene(CORNELL, device="cpu"), 64, 64)
-    img = render(scene, TCfg(trace_depth=8, antialias=False, enable_sss=True), spp=8,
-                 seed=0, device="cpu").numpy()
+    img = goldens.render_case("cornell_spec_64", "cpu")
     d = np.abs(img - np.load(os.path.join(GOLDENS, "cornell_spec_64.npy")))
     off = np.flatnonzero((d > 2e-3).any(axis=-1))
     assert set(off.tolist()) <= set(SPEC_JIT_BRANCHED_PIXELS), off

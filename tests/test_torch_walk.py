@@ -227,12 +227,26 @@ def test_walk_t_init_and_active_masking():
 
 
 def test_walk_shards_are_not_ported():
-    """A shard-local sort needs a multi-device path the port lacks."""
+    """binned_shards = 4 (once refused) sorts each row of the [4, n / 4]
+    view on its own: the hits equal S = 1's; the coherence sort's rank
+    and permutation keep every ray in its row and match JAX's row-local
+    ones."""
+    from kdtreepathtraceroptimization_tpu.ops import binned as jbinned
+
     _, _, tcm = _tables(1)
-    o, d = _rays(256, seed=9)
-    with pytest.raises(NotImplementedError, match="binned_shards"):
-        twalk.intersect_mesh_walk(_t(o), _t(d), tcm,
-                                  TCfg(cluster_tile=256, binned_shards=4))
+    o, d = _rays(1024, seed=9)
+    cfg = TCfg(cluster=True, cluster_walk=True, cluster_tile=256)
+    base = twalk.intersect_mesh_walk(_t(o), _t(d), tcm, cfg)
+    hit = twalk.intersect_mesh_walk(_t(o), _t(d), tcm, TCfg(cluster=True, cluster_walk=True,
+                                                            cluster_tile=256, binned_shards=4))
+    assert (hit.tri >= 0).sum() > 20
+    assert torch.equal(hit.tri, base.tri) and torch.equal(hit.t, base.t)
+    keys = np.random.default_rng(3).integers(0, 9, 3000).astype(np.int32)
+    rank_j, perm_j = jbinned._bin_rank(jnp.asarray(keys), 4)
+    rank_t, perm_t = twalk._bin_rank(_t(keys), 4)
+    offset = np.arange(0, 3000, 750)[:, None]
+    np.testing.assert_array_equal((np.asarray(perm_j) + offset).reshape(-1), perm_t.numpy())
+    np.testing.assert_array_equal((np.asarray(rank_j) + offset).reshape(-1), rank_t.numpy())
 
 
 def test_bin_rank_matches_jax():
