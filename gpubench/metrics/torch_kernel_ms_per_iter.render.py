@@ -1,0 +1,9 @@
+"""Device ms a frame of the kernels that are not the port's own
+(PyTorch's operators), from the profiler."""
+
+
+def read(run):
+    p = run.profile
+    if run.kind != "render" or p is None or p.units == 0:
+        return None
+    return p.torch_ms / p.units
