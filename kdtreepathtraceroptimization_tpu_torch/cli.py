@@ -86,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print per-iteration timing (key T analog)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the steady-state "
-                        "iterations into DIR (trace.json, Chrome trace format)")
+                        "iterations into DIR (trace.json, Chrome trace format), "
+                        "with the port's stage spans (kdpt.*) on its host rows")
     p.add_argument("--print-kd-stats", action="store_true",
                    help="print KD tree stats and write the Houdini-format "
                         "bbox dump next to the output image")
@@ -133,6 +134,7 @@ def main(argv=None) -> int:
         write_hdr,
         write_png,
     )
+    from kdtreepathtraceroptimization_tpu_torch.utils import trace
 
     device = resolve_device(args.device)
     scene = load_scene(
@@ -244,6 +246,7 @@ def main(argv=None) -> int:
                 activities.append(ProfilerActivity.CUDA)
             prof = profile(activities=activities)
             prof.start()
+            trace.enable(True)  # the stage names on the trace's host rows
         t0 = time.perf_counter()
         accum = step(accum, key, it)
         if args.benchmark:
@@ -262,6 +265,8 @@ def main(argv=None) -> int:
                             Film(accum=accum, iteration=it, seed=args.seed))
     sync()
     if prof is not None:
+        trace.enable(False)
+        trace.reset()
         prof.stop()
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))

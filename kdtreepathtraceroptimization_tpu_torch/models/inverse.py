@@ -19,6 +19,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops.rng import Key
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import trace_iteration
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MaterialSoA
 from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, to_tensor, use_full_f32
+from kdtreepathtraceroptimization_tpu_torch.utils.trace import span
 
 
 class TrainState(NamedTuple):
@@ -78,19 +79,23 @@ def make_train_step(scene, config: RenderConfig, target, learning_rate: float = 
 
     def train_step(state: TrainState, base_key: Key,
                    iteration: int) -> Tuple[TrainState, torch.Tensor]:
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = render_loss(state.materials, scene, config, base_key, iteration, target,
-                           pixels)
-        loss.backward()
-        if reduce is not None:
-            loss = reduce(loss, state.materials)
-        state.optimizer.step()
-        m = state.materials
-        with torch.no_grad():
-            m.color.clamp_(0.0, 1.0)
-            m.specular_color.clamp_(0.0, 1.0)
-            m.emittance.clamp_min_(0.0)
-            m.transmittance.clamp_(0.0, 1.0)
-        return state._replace(step=state.step + 1), loss.detach()
+        with span("kdpt.train_step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("kdpt.forward"):
+                loss = render_loss(state.materials, scene, config, base_key, iteration,
+                                   target, pixels)
+            with span("kdpt.backward"):
+                loss.backward()
+            if reduce is not None:
+                loss = reduce(loss, state.materials)
+            with span("kdpt.optimizer"):
+                state.optimizer.step()
+                m = state.materials
+                with torch.no_grad():
+                    m.color.clamp_(0.0, 1.0)
+                    m.specular_color.clamp_(0.0, 1.0)
+                    m.emittance.clamp_min_(0.0)
+                    m.transmittance.clamp_(0.0, 1.0)
+            return state._replace(step=state.step + 1), loss.detach()
 
     return init_state, train_step

@@ -49,6 +49,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops.traverse import _coherence_key
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA
 from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, CudaKernel, check_tensor
 from kdtreepathtraceroptimization_tpu_torch.utils.device import resolve_device, to_tensor
+from kdtreepathtraceroptimization_tpu_torch.utils.trace import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -737,17 +738,19 @@ def intersect_mesh_cluster(origin, direction, cm: ClusterMesh, config,
     actf = act.to(torch.float32)
     x = torch.cat([origin, direction, t0[:, None], actf[:, None]], dim=1)  # [npad, 8]
 
-    tile_entry = cull(x, cm.cull_w, cm.blk, tile)
-    sel, lb, lb_over = _select(tile_entry, config.cluster_rounds)
-    r = _ray_rows(x)
-    bt, btri = cluster_rounds(sel, lb, r, t0, actf, cm, tile)
+    with span("kdpt.cluster.rounds"):
+        tile_entry = cull(x, cm.cull_w, cm.blk, tile)
+        sel, lb, lb_over = _select(tile_entry, config.cluster_rounds)
+        r = _ray_rows(x)
+        bt, btri = cluster_rounds(sel, lb, r, t0, actf, cm, tile)
 
     # Exactness repair: a ray that its tile's first unselected block could
     # still beat reruns against every real triangle, bounded by its best t.
-    flagged = act & (lb_over.repeat_interleave(tile) < bt)
-    nflag = int(flagged.sum())
-    if nflag:
-        bt, btri = sweep(flagged_rows(flagged, nflag), r, bt, btri, cm, tile)
+    with span("kdpt.cluster.sweep"):
+        flagged = act & (lb_over.repeat_interleave(tile) < bt)
+        nflag = int(flagged.sum())
+        if nflag:
+            bt, btri = sweep(flagged_rows(flagged, nflag), r, bt, btri, cm, tile)
 
     if perm is not None:  # un-sort
         bt = torch.empty_like(bt).index_copy_(0, perm, bt)

@@ -43,6 +43,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import walk as wk
 from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit
 from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, CudaKernel, check_tensor
+from kdtreepathtraceroptimization_tpu_torch.utils.trace import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -428,66 +429,68 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     x = wk._ray16(origin, direction, t0, act.to(torch.float32))
 
     # pass 1: the top-F pairs of every ray (and its feature record)
-    ids, lbov, cnt, feat = extract(x, cm.slab, cm.blk, F)
+    with span("kdpt.pairs.pass1"):
+        ids, lbov, cnt, feat = extract(x, cm.slab, cm.blk, F)
 
-    # Narrowing: only rays with a feasible block make pairs. They are
-    # compacted into a buffer of about ns / pair_narrow_div lanes a row,
-    # looped when more rays than that are mesh-active (primary bounces).
-    ndiv = max(1, config.pair_narrow_div)
-    m1 = min(ns, max(ptile, -(-ns // ndiv // ptile) * ptile))
-    bt = t0.clone()
-    btri = torch.full((npad,), -1, dtype=torch.int32, device=device)
-    pos1, cnt1, nr1 = _compact_all(act & (cnt > 0), S)
-    pos1p = _pad_positions(pos1, -(-ns // m1) * m1)
-    k1 = -(-max(nr1) // m1)
-    for k in range(k1):
-        pos = pos1p[:, k * m1:(k + 1) * m1].reshape(-1)
-        live = _live(cnt1, k, m1)
-        ids_c = torch.where(live[:, None], _take_rows(ids, pos), kp)
-        ft_c = _take_rows(feat, pos) * live.to(torch.float32)[:, None]
-        t1, tri1 = _pair_pass(ids_c, ft_c, cm, ptile, kreal, bdiag, S)
-        bt_pos = _take_rows(bt, pos)
-        upd = live & (t1 <= bt_pos)
-        bt, btri = _scatter_slice(
-            pos1p, k, m1,
-            [torch.where(upd, t1, bt_pos), torch.where(upd, tri1, _take_rows(btri, pos))],
-            [bt, btri])
+        # Narrowing: only rays with a feasible block make pairs. They are
+        # compacted into a buffer of about ns / pair_narrow_div lanes a row,
+        # looped when more rays than that are mesh-active (primary bounces).
+        ndiv = max(1, config.pair_narrow_div)
+        m1 = min(ns, max(ptile, -(-ns // ndiv // ptile) * ptile))
+        bt = t0.clone()
+        btri = torch.full((npad,), -1, dtype=torch.int32, device=device)
+        pos1, cnt1, nr1 = _compact_all(act & (cnt > 0), S)
+        pos1p = _pad_positions(pos1, -(-ns // m1) * m1)
+        k1 = -(-max(nr1) // m1)
+        for k in range(k1):
+            pos = pos1p[:, k * m1:(k + 1) * m1].reshape(-1)
+            live = _live(cnt1, k, m1)
+            ids_c = torch.where(live[:, None], _take_rows(ids, pos), kp)
+            ft_c = _take_rows(feat, pos) * live.to(torch.float32)[:, None]
+            t1, tri1 = _pair_pass(ids_c, ft_c, cm, ptile, kreal, bdiag, S)
+            bt_pos = _take_rows(bt, pos)
+            upd = live & (t1 <= bt_pos)
+            bt, btri = _scatter_slice(
+                pos1p, k, m1,
+                [torch.where(upd, t1, bt_pos), torch.where(upd, tri1, _take_rows(btri, pos))],
+                [bt, btri])
 
-    # Proof: no untested block's entry is below lb_over, so a ray whose
-    # best t is <= lb_over is done.
-    unproven = act & (lbov < bt) & (cnt > F)
+        # Proof: no untested block's entry is below lb_over, so a ray whose
+        # best t is <= lb_over is done.
+        unproven = act & (lbov < bt) & (cnt > F)
 
     # pass 2: the window of slots F..F2 for the unproven rays, in rounds of
     # m2 a row; rays still unproven after it gather in ``hard`` for pass 3.
     m2 = min(max(ptile, REPAIR_LANES // S), ns)
     k2, nr2, nr3 = 0, [0], [0]
-    if max_passes >= 2 and F < F2:
-        pos2, cnt2, nr2 = _compact_all(unproven, S)
-        pos2p = _pad_positions(pos2, -(-ns // m2) * m2)
-        hard = torch.zeros((npad,), dtype=torch.bool, device=device)
-        k2 = -(-max(nr2) // m2)
-        for k in range(k2):
-            pos = pos2p[:, k * m2:(k + 1) * m2].reshape(-1)
-            live = _live(cnt2, k, m2)
-            livef = live.to(torch.float32)
-            # The original t0 keeps the first F ids equal to pass 1's, so
-            # slots F..F2 continue exactly where pass 1 stopped.
-            x2 = _take_rows(x, pos)
-            x2[:, 7] *= livef
-            x2[:, 3:6] *= livef[:, None]
-            ids2, lbov2, cnt2w, ft2 = extract(x2, cm.slab, cm.blk, F2, split=True)
-            bt2g = torch.where(live, _take_rows(bt, pos), 0.0)
-            ft2[:, 10] = bt2g  # the window's bound: the current best
-            t2, tri2 = _pair_pass(ids2[:, F:], ft2, cm, ptile, kreal, bdiag, S)
-            upd = live & (t2 < bt2g)
-            still = live & (lbov2 < torch.where(upd, t2, bt2g)) & (cnt2w > F2)
-            bt, btri, hard = _scatter_slice(
-                pos2p, k, m2,
-                [torch.where(upd, t2, _take_rows(bt, pos)),
-                 torch.where(upd, tri2, _take_rows(btri, pos)),
-                 still | _take_rows(hard, pos)],
-                [bt, btri, hard])
-        unproven = hard
+    with span("kdpt.pairs.pass2"):
+        if max_passes >= 2 and F < F2:
+            pos2, cnt2, nr2 = _compact_all(unproven, S)
+            pos2p = _pad_positions(pos2, -(-ns // m2) * m2)
+            hard = torch.zeros((npad,), dtype=torch.bool, device=device)
+            k2 = -(-max(nr2) // m2)
+            for k in range(k2):
+                pos = pos2p[:, k * m2:(k + 1) * m2].reshape(-1)
+                live = _live(cnt2, k, m2)
+                livef = live.to(torch.float32)
+                # The original t0 keeps the first F ids equal to pass 1's, so
+                # slots F..F2 continue exactly where pass 1 stopped.
+                x2 = _take_rows(x, pos)
+                x2[:, 7] *= livef
+                x2[:, 3:6] *= livef[:, None]
+                ids2, lbov2, cnt2w, ft2 = extract(x2, cm.slab, cm.blk, F2, split=True)
+                bt2g = torch.where(live, _take_rows(bt, pos), 0.0)
+                ft2[:, 10] = bt2g  # the window's bound: the current best
+                t2, tri2 = _pair_pass(ids2[:, F:], ft2, cm, ptile, kreal, bdiag, S)
+                upd = live & (t2 < bt2g)
+                still = live & (lbov2 < torch.where(upd, t2, bt2g)) & (cnt2w > F2)
+                bt, btri, hard = _scatter_slice(
+                    pos2p, k, m2,
+                    [torch.where(upd, t2, _take_rows(bt, pos)),
+                     torch.where(upd, tri2, _take_rows(btri, pos)),
+                     still | _take_rows(hard, pos)],
+                    [bt, btri, hard])
+            unproven = hard
 
     # pass 3: the exhaustive walk over what is left, in rounds of m3 a row.
     # It covers each ray's whole feasible list, so every round proves its
@@ -495,31 +498,32 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     m3 = min(max(256, WALK_LANES // S), ns)
     tile3 = min(tile, m3, wk.vmem_tile_cap(kp))
     k3 = 0
-    if max_passes >= 3 and bool(unproven.any()):  # most waves: nothing left
-        pos3, cnt3, nr3 = _compact_all(unproven, S)
-        pos3p = _pad_positions(pos3, -(-ns // m3) * m3)
-        k3 = -(-max(nr3) // m3)
-        for k in range(k3):
-            pos = pos3p[:, k * m3:(k + 1) * m3].reshape(-1)
-            live = _live(cnt3, k, m3)
-            livef = live.to(torch.float32)
-            x3 = _take_rows(x, pos)
-            x3[:, 6] = torch.where(live, _take_rows(bt, pos), 0.0)
-            x3[:, 7] *= livef
-            x3[:, 3:6] *= livef[:, None]
-            te = wk.slab_cull(x3, cm.slab, cm.blk, tile3)
-            sel, lb, nsel = wk._full_select(te)
-            r3 = mxu_bf.ray_features(x3[:, 0:3], x3[:, 3:6]) * livef[:, None]
-            r3 = torch.cat([r3, torch.zeros((S * m3, 6), dtype=torch.float32, device=device)],
-                           dim=1)
-            t3, tri3 = wk.walk(sel, lb, nsel, r3, x3[:, 6].contiguous(),
-                               x3[:, 7].contiguous(), cm, tile3)
-            upd = live & (tri3 >= 0)
-            bt, btri = _scatter_slice(
-                pos3p, k, m3,
-                [torch.where(upd, t3, _take_rows(bt, pos)),
-                 torch.where(upd, tri3, _take_rows(btri, pos))],
-                [bt, btri])
+    with span("kdpt.pairs.pass3"):
+        if max_passes >= 3 and bool(unproven.any()):  # most waves: nothing left
+            pos3, cnt3, nr3 = _compact_all(unproven, S)
+            pos3p = _pad_positions(pos3, -(-ns // m3) * m3)
+            k3 = -(-max(nr3) // m3)
+            for k in range(k3):
+                pos = pos3p[:, k * m3:(k + 1) * m3].reshape(-1)
+                live = _live(cnt3, k, m3)
+                livef = live.to(torch.float32)
+                x3 = _take_rows(x, pos)
+                x3[:, 6] = torch.where(live, _take_rows(bt, pos), 0.0)
+                x3[:, 7] *= livef
+                x3[:, 3:6] *= livef[:, None]
+                te = wk.slab_cull(x3, cm.slab, cm.blk, tile3)
+                sel, lb, nsel = wk._full_select(te)
+                r3 = mxu_bf.ray_features(x3[:, 0:3], x3[:, 3:6]) * livef[:, None]
+                r3 = torch.cat([r3, torch.zeros((S * m3, 6), dtype=torch.float32, device=device)],
+                               dim=1)
+                t3, tri3 = wk.walk(sel, lb, nsel, r3, x3[:, 6].contiguous(),
+                                   x3[:, 7].contiguous(), cm, tile3)
+                upd = live & (tri3 >= 0)
+                bt, btri = _scatter_slice(
+                    pos3p, k, m3,
+                    [torch.where(upd, t3, _take_rows(bt, pos)),
+                     torch.where(upd, tri3, _take_rows(btri, pos))],
+                    [bt, btri])
 
     bt, btri = bt[:n], btri[:n]
     bt = torch.where(btri >= 0, bt, BIG)

@@ -68,6 +68,7 @@ import torch
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
 from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG, intersect_aabb
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit
+from kdtreepathtraceroptimization_tpu_torch.utils.trace import span
 
 State = Dict[str, torch.Tensor]
 
@@ -107,24 +108,25 @@ def _walk_lanes(state: State, outputs: Tuple[str, ...], live: Callable[[State], 
     cut_mask = torch.zeros((n,), dtype=torch.bool, device=device)
     steps = reads = cut = 0
     while True:
-        alive = live(state)
-        n_live = int(alive.sum())  # the loop condition: one host read
-        reads += 1
-        if n_live == 0:
-            break
-        if steps >= max_steps:
-            cut = n_live
-            cut_mask[lanes[alive]] = True
-            break
-        if n_live <= lanes.shape[0] // 2:
-            # keep the walking lanes (done lanes' results go home first)
-            full = {k: full[k].index_copy(0, lanes, state[k]) for k in outputs}
-            keep = torch.sort((~alive).to(torch.int8), stable=True)[1][:n_live]
-            lanes = lanes[keep]
-            state = {k: v[keep] for k, v in state.items()}
-        for _ in range(min(unroll, max_steps - steps)):
-            state = step(state)
-        steps += min(unroll, max_steps - steps)
+        with span("kdpt.kd.round"):
+            alive = live(state)
+            n_live = int(alive.sum())  # the loop condition: one host read
+            reads += 1
+            if n_live == 0:
+                break
+            if steps >= max_steps:
+                cut = n_live
+                cut_mask[lanes[alive]] = True
+                break
+            if n_live <= lanes.shape[0] // 2:
+                # keep the walking lanes (done lanes' results go home first)
+                full = {k: full[k].index_copy(0, lanes, state[k]) for k in outputs}
+                keep = torch.sort((~alive).to(torch.int8), stable=True)[1][:n_live]
+                lanes = lanes[keep]
+                state = {k: v[keep] for k, v in state.items()}
+            for _ in range(min(unroll, max_steps - steps)):
+                state = step(state)
+            steps += min(unroll, max_steps - steps)
     full = {k: full[k].index_copy(0, lanes, state[k]) for k in outputs}
     return full, dict(steps=steps, host_reads=reads, cut=cut, cut_mask=cut_mask)
 

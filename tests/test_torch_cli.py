@@ -33,6 +33,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops.rng import prng_key
 from kdtreepathtraceroptimization_tpu_torch.render.integrator import make_render_fn
 from kdtreepathtraceroptimization_tpu_torch.render.film import tonemap_srgb_u8
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
+from kdtreepathtraceroptimization_tpu_torch.utils import trace
 from kdtreepathtraceroptimization_tpu_torch.utils.image import read_png, write_hdr
 from tests.test_torch_render import CORNELL, _mesh_obj
 
@@ -133,6 +134,11 @@ def test_cli_outputs(tmp_path, capsys, monkeypatch):
     hdr, = glob.glob(str(tmp_path / "a" / "cornell.*.3samp.hdr"))
     assert open(hdr, "rb").read() == (tmp_path / "want.hdr").read_bytes()
     assert os.path.getsize(tmp_path / "a" / "prof" / "trace.json") > 0
+    # the profiled iterations carry the port's stage spans; tracing is off again after
+    names = {e.get("name") for e in json.loads(
+        (tmp_path / "a" / "prof" / "trace.json").read_text())["traceEvents"]}
+    assert {"kdpt.frame", "kdpt.bounce"} <= names
+    assert not trace.enabled()
 
     assert _run(jcli.main, tmp_path / "j", args + ["--spp", "1", "--print-kd-stats"],
                 port=False)[0] == 0
