@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--shapes [NAMES]] [--launches]
 
-Builds the port's twelve CUDA kernels (twelve sources, one for each TPU
-kernel) from ``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per
+Builds the port's thirteen CUDA kernels (thirteen sources: one for each TPU
+kernel, and the analytic geoms' nearest hit) from ``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and the native KD builder (g++), and drives its mesh render
 paths (pair list with either pair kernel, walk, cluster rounds, binned,
 KD walks, brute force), its wavefront extras, its command line and its
@@ -69,6 +69,11 @@ gradient path on Cornell + an 81,920-triangle icosphere at 800x800:
    time (``--launches`` runs only this, after the build: it uses only
    entry points every tree of the port has, so it can time an earlier
    tree's kernels);
+4a. ``[geoms]``: kernel 13 (the analytic geoms' nearest hit) against
+   its plain version on the rays the pair path hands ``intersect_geoms``
+   at bounces 0 (the camera's, their origin one value on every lane) and
+   1, at 800x800 and at 2048x2048: every field bit for bit, with the
+   kernel's and the plain version's ms and the bytes bound (57 B a lane);
 4b. ``[shapes]``, only with ``--shapes`` (the measurement that chose the
    launch-shape constants of kernels 2, 8, 10, 7, 6, 5, 1, 9 and 12;
    ``--shapes slab_cull,cluster_cull`` times only those): the walk, the
@@ -109,7 +114,8 @@ gradient path on Cornell + an 81,920-triangle icosphere at 800x800:
    ``pair_bdiag`` (its image equal to the default pair path's), each with
    ms/iteration, rays/s, peak memory and a profile (a path slower than
    2 s an iteration is timed as one call of one iteration), and for the
-   last two the flagged rays and the repair of every bounce; a short
+   last two the flagged rays and the repair of every bounce (the pair
+   path must launch kernel 13 once a bounce); a short
    cluster-rounds render with 4 rounds at depth 2 (profiled), so that the
    sweep launches on a render whether or not 64 rounds ever flag; a short
    ``enable_kd=False`` render through the brute-force kernel; the KD
@@ -219,6 +225,7 @@ from kdtreepathtraceroptimization_tpu_torch.convert import materials_to_torch, w
 from kdtreepathtraceroptimization_tpu_torch.ops import binned as tbinned
 from kdtreepathtraceroptimization_tpu_torch.ops import cluster as tcl
 from kdtreepathtraceroptimization_tpu_torch.ops import edgegrad as tedge
+from kdtreepathtraceroptimization_tpu_torch.ops import intersect as tisect
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf as tmxu
 from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
@@ -319,6 +326,20 @@ CULL_OPS_PER_PAIR = 5 + 5 + 1 + 5 + 2 + 5 + 1
 # compare; compare; the group's flag). Each ray's margin factors (about 12
 # operations, once a ray) are left out.
 CULL_OPS_PER_GROUP = 10 + 1 + 5 + 1 + 2 + 1 + 1 + 3 + 1 + 3 + 1 + 1
+# Float32 operations of one geom's test on one lane (csrc/geoms_hit.cu):
+# the origin's inverse transform (9 multiplies, 9 adds), the direction's
+# (9, 6) and its normalising (a dot product 5, max, square root, 3
+# divides); the cube's slabs (per axis abs, divide, 2 subtracts, 2
+# multiplies, min, max) and its 4 min/max (the sphere's quadratic takes
+# fewer); the object-space point (3 multiplies, 3 adds), its forward
+# transform (18), the normal's (15) and its normalising (10); the world
+# distance (3 subtracts, a dot product 5, add, square root). Compares and
+# selects are left out.
+GEOM_OPS = 18 + 15 + 10 + 3 * 8 + 4 + 6 + 18 + 15 + 10 + 10
+# Bytes a lane of kernel 13 moves: it reads its ray's six float32
+# channels and writes t, point, normal, material id (4 B a value) and
+# outside (1 B).
+GEOM_LANE_BYTES = 6 * 4 + (1 + 3 + 3 + 1) * 4 + 1
 # The SASS digests (sass_digest) of kernels this tree must build as commit
 # 2e5ed33 (before kernel 1 took kernel 5's group math) did, taken from that
 # commit's sources built with cuda_build.NVCC_FLAGS by the nvcc of
@@ -369,6 +390,8 @@ KERNELS = (
      "kdtreepathtraceroptimization_tpu/ops/cluster.py:432"),
     ("binned_argmin", tbinned.ARGMIN, "kdtreepathtraceroptimization_tpu_torch/csrc/binned_argmin.cu",
      "kdtreepathtraceroptimization_tpu/ops/binned.py:73"),
+    ("geoms_hit", tisect.GEOMS_HIT, "kdtreepathtraceroptimization_tpu_torch/csrc/geoms_hit.cu",
+     "none (jnp only)"),
 )
 # The path whose launch count each kernel's record reports (the sweep's:
 # the cluster path's if it launched there, else the 4-round render's).
@@ -376,7 +399,7 @@ RECORD_PATH = {"slab_cull": "walk", "walk": "walk", "gather_cols": "pairs",
                "scatter_cols": "geomgrad", "pair_extract": "pairs", "pair_runs": "pairs",
                "pair_bdiag": "pairs_bdiag",
                "mxu_bf": "brute", "cluster_cull": "cluster", "cluster_rounds": "cluster",
-               "cluster_sweep": "cluster", "binned_argmin": "binned"}
+               "cluster_sweep": "cluster", "binned_argmin": "binned", "geoms_hit": "pairs"}
 # The sweep's record also gives the recorded call's listed rows and
 # slices, its one-pass time, and the full-width form's time and bound.
 SWEEP_EXTRA = ("rows", "slices", "one_pass_ms", "full_width_ms", "full_width_bound_ms")
@@ -398,6 +421,11 @@ GROUP_EXTRA = ("tests_run", "flat_bound_ms")
 # (the cluster_r4 path's bounce-0 call).
 CULL_EXTRA = ("pass3_ms", "pass3_bound_ms", "binned_ms", "binned_bound_ms", "cluster_r4_ms",
               "cluster_r4_bound_ms")
+# The analytic geoms' record (kernel 13, on the pair path's bounce-1 call)
+# also gives the bounce-0 call, and both calls of the pair path at
+# 2048x2048 (the benchmark's frame).
+GEOMS_EXTRA = ("bounce0_ms", "bounce0_plain_ms", "w2048_ms", "w2048_plain_ms",
+               "w2048_bound_ms", "w2048_bounce0_ms")
 # Each main path's image and its iteration count (phase_main_path).
 IMAGES = {}
 # Launch shapes [shapes] times for kernels 2, 8, 10, 7, 6, 5, 1, 9 and 12: the values
@@ -1677,6 +1705,65 @@ def phase_cluster(scene, device) -> dict:
         "binned_argmin: no one PyTorch call computes a tile-min or first-argmin of a masked "
         "sphere entry bound, or a masked first-minimum over each tile's own blocks")
     return results
+
+
+def geoms_calls(scene, device) -> tuple:
+    """The rays one iteration of the pair path hands ``intersect_geoms``
+    at bounces 0 and 1: ((origin, direction), (origin, direction))."""
+    n = int(scene.camera.resolution[0]) * int(scene.camera.resolution[1])
+    step = make_render_block_fn(scene, RenderConfig(trace_depth=8, antialias=True), 1,
+                                device=device)
+    with Recorder(tisect, "intersect_geoms", 0) as r0, \
+            Recorder(tisect, "intersect_geoms", 1) as r1:
+        step(torch.zeros((n, 3), device=device), prng_key(0), 1)
+    sync(device)
+    return tuple(tuple(r.args[:2]) for r in (r0, r1))
+
+
+def check_geoms(label, origin, direction, geoms, reps: int = 20) -> dict:
+    """Kernel 13 against its plain version on one call: every field bit
+    for bit (torch.equal); the kernel's and the plain version's ms and
+    the bytes bound."""
+    got = tisect.geoms_hit(origin, direction, geoms)
+    want = tisect._intersect_geoms_plain(origin, direction, geoms)
+    sync(origin.x.device)
+    n = origin.x.shape[0]
+    for f in ("t", "material_id", "outside", "point", "normal"):
+        a, b = getattr(got, f), getattr(want, f)
+        pairs = zip(a, b) if f in ("point", "normal") else ((a, b),)
+        if not all(torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"[geoms] {label}: kernel 13's {f} differs from the plain "
+                                 f"version's")
+    hit = want.t < BIG
+    res = dict(max_abs_err=0.0, library_ms=None,
+               ms=time_ms(lambda: tisect.geoms_hit(origin, direction, geoms), reps),
+               plain_ms=time_ms(lambda: tisect._intersect_geoms_plain(origin, direction, geoms),
+                                3),
+               **bound(n * GEOM_LANE_BYTES, n * geoms.count * GEOM_OPS))
+    log(f"[geoms] {label}: {n} lanes x {geoms.count} geoms (origin broadcast: "
+        f"{origin.x.stride(0) == 0}), {int(hit.sum())} hit, {int((hit & ~want.outside).sum())} "
+        f"from inside; every field bit for bit; kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+        f"{GEOM_LANE_BYTES} B a lane)")
+    return res
+
+
+def phase_geoms(scene, device) -> dict:
+    """Kernel 13 against its plain version on the rays the pair path hands
+    ``intersect_geoms`` at bounces 0 (the camera's: their origin one value
+    on every lane) and 1, at 800x800 and at 2048x2048. The 800x800
+    bounce-1 call is the record's."""
+    results = {}
+    for res in (800, 2048):
+        sc = with_resolution(scene, res, res)
+        calls = geoms_calls(sc, device)
+        results[res] = [check_geoms(f"{res}x{res} bounce {b}", *rays, sc.geoms)
+                        for b, rays in enumerate(calls)]
+        del calls
+    (b0, b1), (w0, w1) = results[800], results[2048]
+    return dict(b1, bounce0_ms=b0["ms"], bounce0_plain_ms=b0["plain_ms"], w2048_ms=w1["ms"],
+                w2048_plain_ms=w1["plain_ms"], w2048_bound_ms=w1["bound_ms"],
+                w2048_bounce0_ms=w0["ms"])
 
 
 def phase_launches(scene, device) -> None:
@@ -3010,6 +3097,8 @@ def main() -> int:
     phase_done("bdiag")
     results.update(phase_cluster(scene, device))
     phase_done("cluster")
+    results["geoms_hit"] = phase_geoms(scene, device)
+    phase_done("geoms")
     if shape_names:
         phase_shapes(logs, shape_names)
         phase_done("shapes")
@@ -3026,7 +3115,8 @@ def main() -> int:
     phase_done("kdwalks")
     paths = {
         "pairs": phase_main_path("pairs", scene, RenderConfig(trace_depth=8, antialias=True),
-                                 device, ("pair_extract", "pair_runs", "gather_cols")),
+                                 device, ("pair_extract", "pair_runs", "gather_cols",
+                                          "geoms_hit")),
         "walk": phase_main_path("walk", scene, walk_config, device,
                                 ("slab_cull", "walk", "gather_cols")),
         "cluster": phase_main_path("cluster", scene,
@@ -3064,6 +3154,10 @@ def main() -> int:
                                   absent=("pair_extract", "pair_runs", "mxu_bf", "walk")),
     }
     (img_b, it_b), (img_p, it_p) = IMAGES["pairs_bdiag"], IMAGES["pairs"]
+    log(f"[main:pairs] kernel 13: {paths['pairs']['geoms_hit']} launches over {it_p} iterations "
+        f"(one a bounce: {8 * it_p})")
+    if paths["pairs"]["geoms_hit"] != 8 * it_p:
+        raise AssertionError("kernel 13 did not launch once a bounce on the pair path")
     d = (img_b - img_p).abs().max().item()
     log(f"[main:pairs_bdiag] image against the default pair path's (same seed, {it_b} and "
         f"{it_p} iterations): max |d| {d:.3g}")
@@ -3102,7 +3196,8 @@ def main() -> int:
              **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")},
              **{k: results[name][k]
-                for k in SWEEP_EXTRA + BRUTE_EXTRA + PAIR_EXTRA + GROUP_EXTRA + CULL_EXTRA
+                for k in (SWEEP_EXTRA + BRUTE_EXTRA + PAIR_EXTRA + GROUP_EXTRA + CULL_EXTRA
+                          + GEOMS_EXTRA)
                 if k in results[name]})
         for name, _, source, replaces in KERNELS
     ]}

@@ -18,10 +18,10 @@ film checkpoints and image files. It differentiates the render with
 respect to the material table, the camera and the mesh's triangle tables
 (``models.inverse``: ``render_loss``, ``make_train_step``), and on the KD
 route with respect to the vertex positions and the camera, visibility
-edges included (``ops.edgegrad.make_render_geo``). Its twelve kernels, one
-for each TPU kernel of the JAX package, are CUDA C++ written for Hopper
-(``csrc/``), each with a plain PyTorch version beside it that runs on CPU
-tensors.
+edges included (``ops.edgegrad.make_render_geo``). Its thirteen kernels,
+one for each TPU kernel of the JAX package and one for the analytic
+geoms' nearest hit, are CUDA C++ written for Hopper (``csrc/``), each with
+a plain PyTorch version beside it that runs on CPU tensors.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.

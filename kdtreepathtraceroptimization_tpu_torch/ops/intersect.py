@@ -5,18 +5,31 @@ src/intersections.h): one fused block of [N] elementwise work per
 analytic geom, merged with strict ``<`` so the first of equal hits wins,
 as the reference's sequential ``t < t_min`` loop does
 (pathtrace.cu:461-484). A miss is ``t = BIG``, not the reference's -1.
+
+``intersect_geoms`` runs that work as one CUDA kernel
+(``csrc/geoms_hit.cu``, bit for bit the plain version's results) when
+the rays are CUDA tensors and no gradient is wanted through them, and
+as plain PyTorch (``_intersect_geoms_plain``, which autograd
+differentiates) otherwise.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as vm
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import GEOM_CUBE
+from kdtreepathtraceroptimization_tpu_torch.utils import trace
+from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import CudaKernel, check_tensor
 
 BIG = 1e30
+# Geoms one launch of the kernel takes (kMaxGeoms in csrc/geoms_hit.cu):
+# its table travels in the launch's parameters, which hold 4 KB.
+MAX_GEOMS = 16
 
 
 class Hit(NamedTuple):
@@ -153,17 +166,9 @@ def _sphere_test_g(qo: vm.V3, qd: vm.V3, tr, inv_t):
     return hit, p_world, n_world, outside
 
 
-def intersect_geoms(origin, direction, geoms) -> Hit:
-    """Nearest hit of [N] rays against all analytic geoms.
-
-    ``geoms`` holds host numpy tables: one static test per geom, merged
-    with strict ``<``. ``t`` is the world-space distance |origin - point|,
-    as in the reference. ``origin``/``direction``: V3 of [N] or [N, 3].
-    """
-    if not isinstance(origin, vm.V3):
-        origin = vm.v3_from_rows(origin)
-    if not isinstance(direction, vm.V3):
-        direction = vm.v3_from_rows(direction)
+def _intersect_geoms_plain(origin: vm.V3, direction: vm.V3, geoms) -> Hit:
+    """``intersect_geoms`` in plain PyTorch: one static test per geom,
+    each about 250 [N] elementwise ops, merged with strict ``<``."""
     n = origin.x.shape[0]
     device = origin.x.device
     best = miss_hit(n, device)
@@ -191,6 +196,123 @@ def intersect_geoms(origin, direction, geoms) -> Hit:
             outside=torch.where(upd, outs, best.outside),
         )
     return best
+
+
+class _GeomTable(ctypes.Structure):
+    """``GeomTable`` of ``csrc/geoms_hit.cu``: up to MAX_GEOMS geoms, rows
+    0-2 of their matrices as float32."""
+
+    _fields_ = [("count", ctypes.c_int),
+                ("type", ctypes.c_int * MAX_GEOMS),
+                ("material", ctypes.c_int * MAX_GEOMS),
+                ("inv", ctypes.c_float * (MAX_GEOMS * 12)),
+                ("fwd", ctypes.c_float * (MAX_GEOMS * 12)),
+                ("inv_t", ctypes.c_float * (MAX_GEOMS * 9))]
+
+
+class _Rays(ctypes.Structure):
+    """``Rays`` of ``csrc/geoms_hit.cu``: ox oy oz dx dy dz and their
+    strides (1, or 0 for one value broadcast to every lane)."""
+
+    _fields_ = [("c", ctypes.c_void_p * 6), ("stride", ctypes.c_int * 6)]
+
+
+_P = ctypes.c_void_p
+GEOMS_HIT = CudaKernel("geoms_hit", "geoms_hit", [_P] * 7 + [ctypes.c_int] * 2)
+
+
+def geom_tables(geoms) -> List[_GeomTable]:
+    """The kernel's tables of ``geoms``, MAX_GEOMS geoms a table (at least
+    one table). Matrix entries are rounded to float32, as PyTorch rounds
+    the plain version's Python-float entries."""
+    count = int(geoms.type.shape[0])
+    rows = lambda m, r, c: np.asarray(m, np.float32)[:, :r, :c].reshape(count, r * c)
+    inv, fwd = rows(geoms.inverse_transform, 3, 4), rows(geoms.transform, 3, 4)
+    inv_t = rows(geoms.inv_transpose, 3, 3)
+    tables = []
+    for lo in range(0, max(count, 1), MAX_GEOMS):
+        hi = min(lo + MAX_GEOMS, count)
+        t = _GeomTable()
+        t.count = hi - lo
+        t.type[:hi - lo] = [int(v) for v in geoms.type[lo:hi]]
+        t.material[:hi - lo] = [int(v) for v in geoms.material_id[lo:hi]]
+        t.inv[:(hi - lo) * 12] = inv[lo:hi].ravel().tolist()
+        t.fwd[:(hi - lo) * 12] = fwd[lo:hi].ravel().tolist()
+        t.inv_t[:(hi - lo) * 9] = inv_t[lo:hi].ravel().tolist()
+        tables.append(t)
+    return tables
+
+
+def geoms_hit(origin: vm.V3, direction: vm.V3, geoms) -> Hit:
+    """``intersect_geoms`` with the CUDA kernel: one launch a MAX_GEOMS
+    geoms, no host read. Each of the six channels is a float32 [N] tensor
+    on one CUDA device, contiguous or one value expanded to N lanes."""
+    channels = (*origin, *direction)
+    device = origin.x.device
+    if device.type != "cuda":
+        raise ValueError(f"geoms_hit runs on CUDA tensors, not {device}")
+    n = origin.x.shape[0]
+    rays = _Rays()
+    for k, (name, c) in enumerate(zip(("ox", "oy", "oz", "dx", "dy", "dz"), channels)):
+        if c.dim() == 1 and c.stride(0) == 0:  # one value on every lane
+            check_tensor(c[:1], name, torch.float32, c[:1].shape, device)
+            if c.shape[0] != n:
+                raise ValueError(f"{name} has shape {tuple(c.shape)}, expected {(n,)}")
+        else:
+            check_tensor(c, name, torch.float32, (n,), device)
+        rays.c[k] = c.data_ptr()
+        rays.stride[k] = 0 if c.stride(0) == 0 else 1
+    t = torch.empty((n,), dtype=torch.float32, device=device)
+    point = torch.empty((3, n), dtype=torch.float32, device=device)
+    normal = torch.empty((3, n), dtype=torch.float32, device=device)
+    material = torch.empty((n,), dtype=torch.int32, device=device)
+    outside = torch.empty((n,), dtype=torch.bool, device=device)
+    if n:
+        for k, table in enumerate(geom_tables(geoms)):
+            GEOMS_HIT.launch(device, ctypes.addressof(table), ctypes.addressof(rays),
+                             t.data_ptr(), point.data_ptr(), normal.data_ptr(),
+                             material.data_ptr(), outside.data_ptr(), n, int(k == 0))
+    return Hit(t=t, point=vm.V3(*point), normal=vm.V3(*normal),
+               material_id=material, outside=outside)
+
+
+def _wants_grad(channels) -> bool:
+    """Whether autograd is to differentiate through any of ``channels``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(c, torch.Tensor) and c.requires_grad for c in channels)
+
+
+def _kernel_takes(channels) -> bool:
+    """Whether ``geoms_hit`` takes a call: CUDA rays with no gradient
+    wanted through them (its argument checks refuse any other dtype or
+    shape)."""
+    return channels[0].is_cuda and not _wants_grad(channels)
+
+
+def intersect_geoms(origin, direction, geoms) -> Hit:
+    """Nearest hit of [N] rays against all analytic geoms.
+
+    ``geoms`` holds host numpy tables: one static test per geom, merged
+    with strict ``<``. ``t`` is the world-space distance |origin - point|,
+    as in the reference. ``origin``/``direction``: V3 of [N] or [N, 3].
+    The CUDA kernel runs where ``_kernel_takes`` the rays, the plain
+    version elsewhere; while tracing is on, the counters
+    ``geoms_kernel_lanes`` and ``geoms_plain_lanes`` sum the lanes each
+    took.
+    """
+    if not isinstance(origin, vm.V3):
+        origin = vm.v3_from_rows(origin)
+    if not isinstance(direction, vm.V3):
+        direction = vm.v3_from_rows(direction)
+    if _kernel_takes((*origin, *direction)):
+        flat = lambda v: vm.V3(*(c if c.stride(0) == 0 or c.is_contiguous() else c.contiguous()
+                                 for c in v))
+        hit, path = geoms_hit(flat(origin), flat(direction), geoms), "geoms_kernel_lanes"
+    else:
+        hit, path = _intersect_geoms_plain(origin, direction, geoms), "geoms_plain_lanes"
+    if trace.enabled():
+        trace.add(path, torch.tensor(hit.t.shape[0]))
+    return hit
 
 
 def moller_trumbore(origin, direction, v0, v1, v2, cull_backface: bool = True):

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("slab_cull", "walk", "gather_cols", "scatter_cols", "pair_extract", "pair_runs",
            "pair_bdiag", "mxu_bf", "cluster_cull", "cluster_rounds", "cluster_sweep",
-           "binned_argmin")
+           "binned_argmin", "geoms_hit")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

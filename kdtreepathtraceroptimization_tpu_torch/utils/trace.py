@@ -22,7 +22,10 @@ bounce ``kdpt.geoms``, ``kdpt.intersect.<route>``, ``kdpt.hit_expand``,
 ``kdpt.scatter``, ``kdpt.shade`` and ``kdpt.reorder``; inside the
 intersectors ``kdpt.pairs.pass1`` .. ``pass3``, ``kdpt.cluster.rounds``,
 ``kdpt.cluster.sweep`` and ``kdpt.kd.round``. The counter ``live_lanes``
-sums, for each bounce slot, the wavefront lanes that still carry a path.
+sums, for each bounce slot, the wavefront lanes that still carry a path;
+``geoms_kernel_lanes`` and ``geoms_plain_lanes`` (slot 0) the lanes of
+every ``ops.intersect.intersect_geoms`` call that took its CUDA kernel or
+its plain version.
 """
 
 from __future__ import annotations

@@ -30,6 +30,8 @@ the sum of the |contributions| to it (its float
 atomics add in an order that changes from run to run).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -37,11 +39,13 @@ import torch
 from kdtreepathtraceroptimization_tpu_torch.config import RenderConfig
 from kdtreepathtraceroptimization_tpu_torch.ops import binned as tbinned
 from kdtreepathtraceroptimization_tpu_torch.ops import cluster as tcl
+from kdtreepathtraceroptimization_tpu_torch.ops import intersect as tisect
 from kdtreepathtraceroptimization_tpu_torch.ops import mesh as tmesh
 from kdtreepathtraceroptimization_tpu_torch.ops import mxu_bf
 from kdtreepathtraceroptimization_tpu_torch.ops import pairs as tpairs
 from kdtreepathtraceroptimization_tpu_torch.ops import walk as twalk
 from kdtreepathtraceroptimization_tpu_torch.ops.cluster import build_cluster_mesh
+from kdtreepathtraceroptimization_tpu_torch.ops.vecmath import V3
 from kdtreepathtraceroptimization_tpu_torch.scene.structs import MeshSoA
 from kdtreepathtraceroptimization_tpu_torch.utils import cuda_build
 from kdtreepathtraceroptimization_tpu_torch.utils.procmesh import icosphere
@@ -601,6 +605,21 @@ def test_new_wrappers_check_their_arguments(cuda):
         mxu_bf.intersect_brute_mxu(x[:, :3], x[:, 3:6], v, v, v, ray_tile=8192)
 
 
+def test_geoms_hit_checks_its_arguments(cuda):
+    geoms = _geoms("cornell.txt")
+    o, d = (V3(*torch.tensor(a, device=cuda).T.contiguous()) for a in _geom_rays(geoms, 64, 0))
+    assert torch.equal(tisect.geoms_hit(o, d, geoms).t,
+                       tisect._intersect_geoms_plain(o, d, geoms).t)
+    rows = torch.zeros((64, 3), device=cuda)
+    for bad in (o.x.double(), o.x.cpu(), o.x[:63], o.x[None], rows[:, 0]):
+        with pytest.raises(ValueError):  # dtype, device, shape, shape, stride
+            tisect.geoms_hit(o._replace(x=bad), d, geoms)
+    with pytest.raises(ValueError):  # one value broadcast to the wrong length
+        tisect.geoms_hit(o, d._replace(z=d.z[:1].expand(63)), geoms)
+    with pytest.raises(ValueError):  # CUDA rays never fall back to the plain path
+        tisect.intersect_geoms(o._replace(x=o.x.double()), d, geoms)
+
+
 def test_pair_intersector_on_cuda_matches_cpu(cuda):
     """The whole intersector with its three passes, kernels against plain
     versions: rays aimed at the silhouette of a 5,120-triangle sphere in
@@ -1022,3 +1041,125 @@ def test_binned_shards_on_cuda(cuda, route, shards):
         assert (hit.tri == base.tri).float().mean().item() >= 0.9999
         both = (hit.tri >= 0) & (base.tri >= 0)
         torch.testing.assert_close(hit.t[both], base.t[both], rtol=1e-5, atol=0)
+
+
+# --------------------------------------------------------------------------
+# kernel 13: the analytic geoms' nearest hit
+# --------------------------------------------------------------------------
+
+SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
+GEOM_SCENES = ["cornell.txt", "cornell_spheres.txt", "sphere.txt",
+               "cornell2.txt+cornell4.txt"]  # 24 geoms: two launches
+
+
+def _geoms(names):
+    from kdtreepathtraceroptimization_tpu_torch.scene.parser import load_scene
+
+    parts = [load_scene(os.path.join(SCENES, f), device="cpu").geoms for f in names.split("+")]
+    return type(parts[0])(*(np.concatenate(a) for a in zip(*parts)))
+
+
+def _geom_rays(geoms, n, seed):
+    """[n, 3] origins and directions: a third from around the geoms, a
+    third from their centres (inside a cube or a sphere), a third from 20
+    units away; an eighth of the directions along an axis, an eighth with
+    one component 0, a few all 0."""
+    rng = np.random.default_rng(seed)
+    centres = geoms.transform[:, :3, 3].astype(np.float64)
+    lo, hi = centres.min(0) - 3.0, centres.max(0) + 3.0
+    pick = centres[rng.integers(0, len(centres), n)]
+    far = rng.normal(size=(n, 3))
+    far = centres.mean(0) + 20.0 * far / np.linalg.norm(far, axis=1, keepdims=True)
+    o = np.where((np.arange(n) % 3 == 0)[:, None], rng.uniform(lo, hi, (n, 3)),
+                 np.where((np.arange(n) % 3 == 1)[:, None],
+                          pick + rng.normal(scale=0.05, size=(n, 3)), far))
+    d = rng.normal(size=(n, 3))
+    k = np.arange(n) % 8
+    axis = rng.integers(0, 3, n)
+    d[k == 0] = 0.0
+    d[k == 0, axis[k == 0]] = rng.choice([-1.0, 1.0], int((k == 0).sum()))
+    d[k == 1, axis[k == 1]] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[np.arange(n) % 97 == 5] = 0.0
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _hits_equal(a, b):
+    for f in ("t", "material_id", "outside"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for f in ("point", "normal"):
+        for c in "xyz":
+            assert torch.equal(getattr(getattr(a, f), c), getattr(getattr(b, f), c)), f + c
+
+
+@pytest.mark.parametrize("n", [65536, 3001, 1])
+@pytest.mark.parametrize("scene", GEOM_SCENES)
+def test_geoms_hit_kernel_bit_equal(cuda, scene, n):
+    """Kernel 13 against the plain version, every field bit for bit, on
+    cubes and spheres, rays inside them, axis-parallel and zero
+    directions, and an n that is not a multiple of the thread block."""
+    geoms = _geoms(scene)
+    o, d = (V3(*torch.tensor(a, device=cuda).T.contiguous()) for a in _geom_rays(geoms, n, n))
+    before = tisect.GEOMS_HIT.launches
+    got = tisect.intersect_geoms(o, d, geoms)
+    assert tisect.GEOMS_HIT.launches - before == -(-geoms.count // tisect.MAX_GEOMS)
+    want = tisect._intersect_geoms_plain(o, d, geoms)
+    _hits_equal(got, want)
+    if n > 1:
+        hit = want.t < tisect.BIG
+        assert hit.any() and (~hit).any() and (hit & ~want.outside).any()
+
+
+def test_geoms_hit_kernel_bit_equal_on_camera_rays(cuda):
+    """Camera rays of the Cornell box (their origin one value broadcast to
+    every lane), as V3 channels and as [N, 3] rows; rays that want a
+    gradient take the plain path and get the same values."""
+    from kdtreepathtraceroptimization_tpu_torch.ops.camera import generate_rays
+    from kdtreepathtraceroptimization_tpu_torch.ops.rng import bounce_key, prng_key
+    from kdtreepathtraceroptimization_tpu_torch.scene.parser import load_scene, with_resolution
+
+    scene = with_resolution(load_scene(os.path.join(SCENES, "cornell.txt"), device=cuda), 96, 96)
+    rays = generate_rays(scene.camera, RenderConfig(antialias=True),
+                         bounce_key(prng_key(0), 1, 0), 8, cuda)
+    assert rays.origin.x.stride(0) == 0
+    want = tisect._intersect_geoms_plain(rays.origin, rays.direction, scene.geoms)
+    rows = tuple(torch.stack(list(v), dim=1) for v in (rays.origin, rays.direction))
+    before = tisect.GEOMS_HIT.launches
+    for o, d in ((rays.origin, rays.direction), rows):
+        _hits_equal(tisect.intersect_geoms(o, d, scene.geoms), want)
+    assert tisect.GEOMS_HIT.launches == before + 2
+    d = V3(*(c.clone().requires_grad_(True) for c in rays.direction))
+    got = tisect.intersect_geoms(rays.origin, d, scene.geoms)
+    assert tisect.GEOMS_HIT.launches == before + 2 and got.t.requires_grad
+    _hits_equal(tisect.Hit(*(f.detach() if isinstance(f, torch.Tensor)
+                             else V3(*(c.detach() for c in f)) for f in got)), want)
+
+
+def test_pair_render_bit_equal_with_geoms_kernel(cuda, tmp_path, monkeypatch):
+    """One 256x256 depth-8 frame of Cornell + a 5,120-triangle icosphere on
+    the pair route: the film with kernel 13 equals the film with the plain
+    version; the kernel launches once a bounce."""
+    from kdtreepathtraceroptimization_tpu_torch.ops.rng import prng_key
+    from kdtreepathtraceroptimization_tpu_torch.render.integrator import make_render_fn, mesh_route
+    from kdtreepathtraceroptimization_tpu_torch.scene.parser import load_scene, with_resolution
+    from kdtreepathtraceroptimization_tpu_torch.utils.procmesh import write_obj
+
+    verts, faces = icosphere(4, radius=2.0, center=(0.0, 3.0, 0.0))
+    obj = str(tmp_path / "ico4.obj")
+    write_obj(obj, verts, faces)
+    scene = with_resolution(load_scene(os.path.join(SCENES, "cornell.txt"), obj_path=obj,
+                                       device=cuda), 256, 256)
+    cfg = RenderConfig(trace_depth=8, antialias=True, cluster_tile=256)
+    assert mesh_route(scene.mesh, scene.cmesh, cfg, scene.kd) == "pairs"
+
+    def frame():
+        return make_render_fn(scene, cfg, device=cuda)(
+            torch.zeros((256 * 256, 3), device=cuda), prng_key(0), 1)
+
+    before = tisect.GEOMS_HIT.launches
+    got = frame()
+    assert tisect.GEOMS_HIT.launches - before == 8
+    monkeypatch.setattr(tisect, "_kernel_takes", lambda channels: False)
+    want = frame()
+    assert tisect.GEOMS_HIT.launches - before == 8
+    assert want.abs().sum() > 0 and torch.equal(got, want)

@@ -41,6 +41,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import sampling as tsampling
 from kdtreepathtraceroptimization_tpu_torch.ops import shade as tshade
 from kdtreepathtraceroptimization_tpu_torch.ops import vecmath as tvm
 from kdtreepathtraceroptimization_tpu_torch.scene import parser as tparser
+from kdtreepathtraceroptimization_tpu_torch.utils import trace
 
 CORNELL = os.path.join(os.path.dirname(__file__), "..", "scenes", "cornell.txt")
 MAXULP = 16
@@ -128,6 +129,106 @@ def test_intersect_geoms_match(scenes):
         _same_v3(hj.normal, ht.normal, "normal")
         _same(hj.material_id, ht.material_id, "material_id")
         _same(hj.outside, ht.outside, "outside")
+
+
+def _traced_lanes(fn):
+    """``fn()`` with tracing on; returns its result and the geom counters."""
+    trace.reset()
+    trace.enable(True)
+    try:
+        out = fn()
+        return out, trace.counters()
+    finally:
+        trace.enable(False)
+        trace.reset()
+
+
+def _hits_equal(a, b):
+    for f in ("t", "material_id", "outside"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for f in ("point", "normal"):
+        for c in "xyz":
+            assert torch.equal(getattr(getattr(a, f), c), getattr(getattr(b, f), c)), f + c
+
+
+def test_intersect_geoms_match_compares_the_plain_path(scenes):
+    """On CPU tensors ``intersect_geoms`` is its plain version, so
+    test_intersect_geoms_match holds the plain version against JAX."""
+    _, ts = scenes
+    rt = _camera_rays(*scenes)[1]
+    o, d = _bounce_rays(4096, seed=1)
+    for ot, dt in ((rt.origin, rt.direction), (_t(o), _t(d))):
+        hit, lanes = _traced_lanes(lambda: tisect.intersect_geoms(ot, dt, ts.geoms))
+        n = tvm.as_rows(ot).shape[0]
+        assert lanes == {"geoms_plain_lanes": [n]}
+        rows = (ot, dt) if isinstance(ot, tvm.V3) else (tvm.v3_from_rows(ot),
+                                                         tvm.v3_from_rows(dt))
+        _hits_equal(hit, tisect._intersect_geoms_plain(*rows, ts.geoms))
+
+
+@pytest.mark.parametrize("grad_mode", [True, False])
+def test_intersect_geoms_rays_with_grad_take_the_plain_path(scenes, grad_mode):
+    """Rays that carry a gradient take the plain path, which autograd
+    differentiates; under no_grad the same rays carry none."""
+    _, ts = scenes
+    o, d = _bounce_rays(512, seed=3)
+    ot = _t(o).requires_grad_(True)
+    with torch.set_grad_enabled(grad_mode):
+        hit, lanes = _traced_lanes(lambda: tisect.intersect_geoms(ot, _t(d), ts.geoms))
+    assert lanes == {"geoms_plain_lanes": [512]}
+    assert hit.t.requires_grad == grad_mode
+    if grad_mode:
+        torch.where(hit.t < tisect.BIG, hit.t, 0.0).sum().backward()
+        assert torch.isfinite(ot.grad).all() and ot.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("requires_grad, grad_mode, wants", [
+    (True, True, True), (True, False, False), (False, True, False), (False, False, False)])
+def test_kernel_dispatch_wants_grad(requires_grad, grad_mode, wants):
+    """The kernel takes no call whose rays want a gradient, and no call on
+    CPU tensors."""
+    channels = [torch.zeros(8) for _ in range(6)]
+    channels[4].requires_grad_(requires_grad)
+    with torch.set_grad_enabled(grad_mode):
+        assert tisect._wants_grad(channels) == wants
+        assert not tisect._kernel_takes(channels)
+
+
+@pytest.mark.parametrize("names", ["cornell.txt", "cornell_spheres.txt", "sphere.txt",
+                                   "cornell2.txt+cornell4.txt", ""])
+def test_geom_tables_hold_the_geoms(names):
+    """The kernel's tables: MAX_GEOMS geoms a table, in scene order, the
+    matrices' rows 0-2 as float32."""
+    parts = [tparser.load_scene(os.path.join(os.path.dirname(CORNELL), f), device="cpu").geoms
+             for f in names.split("+") if f]
+    if parts:
+        geoms = type(parts[0])(*(np.concatenate(a) for a in zip(*parts)))
+    else:
+        geoms = tparser.load_scene(CORNELL, device="cpu").geoms
+        geoms = type(geoms)(*(a[:0] for a in geoms))
+    tables = tisect.geom_tables(geoms)
+    count = geoms.count
+    assert len(tables) == max(1, -(-count // tisect.MAX_GEOMS))
+    assert [t.count for t in tables][:-1] == [tisect.MAX_GEOMS] * (len(tables) - 1)
+    assert sum(t.count for t in tables) == count
+    lo = 0
+    for t in tables:
+        k = t.count
+        assert list(t.type[:k]) == geoms.type[lo:lo + k].tolist()
+        assert list(t.material[:k]) == geoms.material_id[lo:lo + k].tolist()
+        for field, m, r, c in (("inv", geoms.inverse_transform, 3, 4),
+                               ("fwd", geoms.transform, 3, 4),
+                               ("inv_t", geoms.inv_transpose, 3, 3)):
+            got = np.array(getattr(t, field)[:k * r * c], np.float32).reshape(k, r, c)
+            np.testing.assert_array_equal(got, m[lo:lo + k, :r, :c], err_msg=field)
+        lo += k
+
+
+def test_geoms_hit_refuses_cpu_tensors(scenes):
+    _, ts = scenes
+    o, d = _bounce_rays(16, seed=4)
+    with pytest.raises(ValueError):
+        tisect.geoms_hit(tvm.v3_from_rows(_t(o)), tvm.v3_from_rows(_t(d)), ts.geoms)
 
 
 @pytest.mark.parametrize("softness, inside_frac", [(0.0, 0.0), (0.5, 0.3)])
