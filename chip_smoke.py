@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--shapes [NAMES]] [--launches]
+    python3 chip_smoke.py [--shapes [NAMES]] [--launches] [--big]
 
 Builds the port's thirteen CUDA kernels (thirteen sources: one for each TPU
 kernel, and the analytic geoms' nearest hit) from ``kdtreepathtraceroptimization_tpu_torch/csrc`` (one nvcc per
@@ -69,6 +69,24 @@ gradient path on Cornell + an 81,920-triangle icosphere at 800x800:
    time (``--launches`` runs only this, after the build: it uses only
    entry points every tree of the port has, so it can time an earlier
    tree's kernels);
+3c. ``[big]``: the pair path on a million-triangle mesh, as the
+   benchmark's ``cornell-ico1310k`` renders it (``--big`` runs only
+   this, after the build): Cornell + ``icosphere(8)`` (1,310,720
+   triangles, which the cluster build puts in 4,096 blocks of 512) at
+   2048x2048, depth 8, AA, the default config (route ``pairs``). On its
+   second bounce's pair call: kernel 5 on pass 1's and pass 2's calls (in
+   both forms) and kernel 3 bit for bit, kernel 1 bit for bit on pass 3's
+   first call (with its group premise), kernel 6 on pass 1's and pass
+   2's first calls (its tolerance above), kernel 2 on pass 3's first walk
+   and, as pass 3's rays mostly miss, on 2,048 mesh-active rays of the
+   bounce whose lists are built as pass 3 builds them, a tenth of which
+   at least must hit (ids equal on every ray, t within 1e-5 relative),
+   each against its
+   plain version, and the pair list against the brute-force kernel on
+   every ray of the bounce (its tolerance above); then the path with
+   every launch count zeroed just before it and read just after
+   (kernels 5, 6, 1, 2, 3 and 13 must launch, kernel 13 once a bounce;
+   kernels 7-12 must not);
 4a. ``[geoms]``: kernel 13 (the analytic geoms' nearest hit) against
    its plain version on the rays the pair path hands ``intersect_geoms``
    at bounces 0 (the camera's, their origin one value on every lane) and
@@ -426,6 +444,12 @@ CULL_EXTRA = ("pass3_ms", "pass3_bound_ms", "binned_ms", "binned_bound_ms", "clu
 # 2048x2048 (the benchmark's frame).
 GEOMS_EXTRA = ("bounce0_ms", "bounce0_plain_ms", "w2048_ms", "w2048_plain_ms",
                "w2048_bound_ms", "w2048_bounce0_ms")
+# phase_big's mesh and film: icosphere(8), 1,310,720 triangles, which the
+# cluster build puts in blocks of 512 (past 1,048,576 triangles), at the
+# benchmark's 2048x2048.
+BIG_SUBDIV = 8
+BIG_RES = 2048
+BIG_BLOCK = 512
 # Each main path's image and its iteration count (phase_main_path).
 IMAGES = {}
 # Launch shapes [shapes] times for kernels 2, 8, 10, 7, 6, 5, 1, 9 and 12: the values
@@ -1232,6 +1256,119 @@ def phase_pairs(scene, device):
     log("[kernels] library_ms is null for pair_extract, pair_runs and mxu_bf: no one PyTorch "
         "call computes a masked first-minimum (or top-F selection) over each ray's own blocks")
     return results, stats
+
+
+def phase_big(device) -> dict:
+    """[big]: kernels 5, 6, 1, 2 and 3 against their plain versions on the
+    calls the million-triangle pair path makes at its second bounce, the
+    pair list against the brute force on every ray of that bounce, and the
+    path's launches (module docstring, 3c). Returns the path's launches."""
+    use_full_f32()
+    t = time.perf_counter()
+    scene = mesh_scene(BIG_SUBDIV, 2.5, BIG_RES, device)
+    load_s = time.perf_counter() - t
+    cm = scene.cmesh
+    config = RenderConfig(trace_depth=8, antialias=True)  # the default config
+    route = tint.mesh_route(scene.mesh, cm, config, scene.kd)
+    log(f"[big] icosphere({BIG_SUBDIV}): {int(scene.mesh.v0.shape[0])} triangles, OBJ write and "
+        f"scene load {load_s:.1f} s; cluster table of {cm.n_blocks} blocks of {cm.block} "
+        f"({cm.n_real_blocks} real); route {route}")
+    if cm.block != BIG_BLOCK or route != "pairs":
+        raise AssertionError(f"[big] the mesh took blocks of {cm.block} and route {route}")
+    n = BIG_RES * BIG_RES
+    step = make_render_block_fn(scene, config, 1, device=device)
+    with Recorder(tint, "intersect_mesh_pairs", 1) as rp, Recorder(tmesh, "gather_cols", 1) as rg:
+        step(torch.zeros((n, 3), device=device), prng_key(0), 1)
+    sync(device)
+    args, kwargs = rp.args, rp.kwargs
+    with Recorder(tpairs, "extract", 0, match=lambda a, kw: a[3] == tpairs.F2) as r2, \
+            Recorder(tpairs, "extract", 0, match=lambda a, kw: a[3] != tpairs.F2) as r1, \
+            Recorder(tpairs, "pair_runs", 0) as rr, Recorder(twalk, "slab_cull", 0) as r3, \
+            Recorder(twalk, "walk", 0) as rw:
+        hit, stats = tpairs.intersect_mesh_pairs(*args, **kwargs, collect_stats=True)
+    sync(device)
+    log(f"[big] bounce 1 stats: {stats}")
+    if not stats["p2_rounds"] or not stats["p3_rounds"]:
+        raise AssertionError("[big] the bounce-1 pair call ran no pass 2 or no pass 3")
+    # pass 2's first pair test comes after pass 1's n1_rounds
+    with Recorder(tpairs, "pair_runs", stats["n1_rounds"]) as rr2:
+        tpairs.intersect_mesh_pairs(*args, **kwargs)
+    sync(device)
+
+    for label, rec in (("pass 1", r1), ("pass 2", r2)):
+        x, slab, blk, F = rec.args
+        want = tpairs._extract_ref(x, slab, blk, F)
+        for split in (False, True):
+            got = tpairs.extract(x, slab, blk, F, split)
+            sync(device)
+            for name, a, b in zip(("ids", "lbov", "cnt", "feat"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"[big] pair_extract {label} (split {split}): {name} "
+                                         f"differs from the plain version in "
+                                         f"{int((a != b).sum())} entries")
+        ms = time_ms(lambda: tpairs.extract(x, slab, blk, F, bool(rec.kwargs.get("split"))), 5)
+        log(f"[big] pair_extract {label} == plain bit for bit in both forms; x [{x.shape[0]},16] "
+            f"({int((x[:, 7] > 0).sum())} live), kp {blk.shape[1]} "
+            f"({int((blk[5] >= 0).sum())} real), F {F}, {int(want[2].sum())} feasible pairs; "
+            f"kernel {ms:.4f} ms")
+    for label, rec in (("pass 1", rr), ("pass 2", rr2)):
+        check_pair_runs(f"[big] {label}", *rec.args)
+    check_tile_cull("slab_cull", "[big] pass 3", r3.args)
+
+    sel, lb, nsel, r, t0, act, wcm, wtile = rw.args
+    bt_k, btri_k = twalk.walk(sel, lb, nsel, r, t0, act, wcm, wtile)
+    bt_p, btri_p = twalk._walk_ref(sel, lb, r, t0, act, wcm.w, wtile, wcm.block)
+    sync(device)
+    check_hits("[big] walk", (bt_k, btri_k), (bt_p, btri_p))
+    if not torch.equal(btri_k, btri_p):
+        raise AssertionError(f"[big] walk: ids differ from the plain version on "
+                             f"{int((btri_k != btri_p).sum())} rays")
+    log(f"[big] walk: {r.shape[0]} rays in {r.shape[0] // wtile} tiles of {wtile}, lists of "
+        f"{sel.shape[1]} blocks (feasible: mean {nsel.float().mean().item():.1f}, max "
+        f"{int(nsel.max())}), {int((btri_p >= 0).sum())} hits; ids equal on every ray, t "
+        f"bit-equal on {int((bt_k == bt_p).sum())}; kernel "
+        f"{time_ms(lambda: twalk.walk(sel, lb, nsel, r, t0, act, wcm, wtile), 5):.4f} ms")
+    # Pass 3's rays are mostly misses that graze many blocks (a hit is soon
+    # proven), so its walk may find nothing: walk the bounce's first 2,048
+    # mesh-active rays too, their lists built as pass 3 builds them.
+    x1 = r1.args[0]
+    ids1 = (x1[:, 7] > 0).nonzero()[:, 0]
+    ids1 = ids1[:65536][tpairs._extract_ref(x1[ids1[:65536]], *r1.args[1:])[2] > 0]
+    ids1 = ids1[:min(2048, ids1.shape[0] // wtile * wtile)]
+    xs = x1[ids1]
+    sel, lb, nsel = twalk._full_select(twalk.slab_cull(xs, cm.slab, cm.blk, wtile))
+    rs = torch.cat([tmxu.ray_features(xs[:, 0:3], xs[:, 3:6]),
+                    torch.zeros((xs.shape[0], 6), device=device)], dim=1)
+    t0, act = xs[:, 6].contiguous(), xs[:, 7].contiguous()
+    bt_k, btri_k = twalk.walk(sel, lb, nsel, rs, t0, act, cm, wtile)
+    bt_p, btri_p = twalk._walk_ref(sel, lb, rs, t0, act, cm.w, wtile, cm.block)
+    sync(device)
+    check_hits("[big] walk on mesh-active rays", (bt_k, btri_k), (bt_p, btri_p))
+    if not torch.equal(btri_k, btri_p) or int((btri_p >= 0).sum()) < xs.shape[0] // 10:
+        raise AssertionError("[big] walk on mesh-active rays: ids differ from the plain "
+                             "version, or fewer than a tenth of the rays hit")
+    log(f"[big] walk on {xs.shape[0]} mesh-active rays (lists: mean "
+        f"{nsel.float().mean().item():.1f}, max {int(nsel.max())} blocks): "
+        f"{int((btri_p >= 0).sum())} hits; ids equal on every ray, t bit-equal on "
+        f"{int((bt_k == bt_p).sum())}")
+
+    packed, tri = rg.args
+    if not torch.equal(tmesh.gather_cols(packed, tri), tmesh._gather_cols_ref(packed, tri)):
+        raise AssertionError("[big] gather_cols differs from packed[tri].T")
+    log(f"[big] gather_cols == packed[tri].T bit for bit; packed [{packed.shape[0]},"
+        f"{packed.shape[1]}], tri [{tri.shape[0]}]")
+
+    brute_check("[big] pair list", hit, args, kwargs, 2.0 ** -12)
+    del rp, rg, r1, r2, rr, rr2, r3, rw, args, kwargs, hit
+    launches = phase_main_path("pairs_ico1310k", scene, config, device,
+                               ("pair_extract", "pair_runs", "slab_cull", "walk", "gather_cols",
+                                "geoms_hit"), block=1, timed_calls=2, profile=False,
+                               absent=("pair_bdiag", "mxu_bf", "cluster_cull", "cluster_rounds",
+                                       "cluster_sweep", "binned_argmin"))
+    iters = IMAGES.pop("pairs_ico1310k")[1]
+    if launches["geoms_hit"] != 8 * iters:
+        raise AssertionError("[big] kernel 13 did not launch once a bounce")
+    return launches
 
 
 def ptxas_summary(text: str) -> str:
@@ -3042,6 +3179,9 @@ def main() -> int:
     parser.add_argument("--launches", action="store_true",
                         help="only build the kernels and time each launch of kernels 5 and 6 "
                              "over one iteration of the pair path")
+    parser.add_argument("--big", action="store_true",
+                        help="only build the kernels and run the million-triangle pair path's "
+                             "checks (blocks of 512, 2048x2048)")
     args = parser.parse_args()
     shape_names = [k for k in args.shapes.split(",") if k]
     unknown = [k for k in shape_names if k not in SHAPES]
@@ -3077,6 +3217,10 @@ def main() -> int:
     def phase_done(name):
         log(f"[time] {name} done at {time.perf_counter() - start:.1f} s")
 
+    if args.big:
+        log(f"[big] launches over the path: {phase_big(device)}")
+        log(f"[card] {card}")
+        return 0
     scene = mesh_scene(6, 2.5, 800, device)
     if args.launches:
         phase_launches(scene, device)
@@ -3164,6 +3308,8 @@ def main() -> int:
     if it_b != it_p or d != 0.0:
         raise AssertionError("the pair_bdiag image differs from the default pair path's")
     phase_done("main paths")
+    paths["pairs_ico1310k"] = phase_big(device)
+    phase_done("big")
     paths["kdwalks"] = kdwalks
     paths["extras"] = phase_extras(scene, device)
     phase_done("extras")

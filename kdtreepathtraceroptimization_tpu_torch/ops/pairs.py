@@ -43,7 +43,7 @@ from kdtreepathtraceroptimization_tpu_torch.ops import walk as wk
 from kdtreepathtraceroptimization_tpu_torch.ops.intersect import BIG
 from kdtreepathtraceroptimization_tpu_torch.ops.mesh import TriHit
 from kdtreepathtraceroptimization_tpu_torch.utils.cuda_build import MAX_SMEM, CudaKernel, check_tensor
-from kdtreepathtraceroptimization_tpu_torch.utils.trace import span
+from kdtreepathtraceroptimization_tpu_torch.utils.trace import add, span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -440,6 +440,7 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
         bt = t0.clone()
         btri = torch.full((npad,), -1, dtype=torch.int32, device=device)
         pos1, cnt1, nr1 = _compact_all(act & (cnt > 0), S)
+        add("pairs_mesh_active", cnt1)
         pos1p = _pad_positions(pos1, -(-ns // m1) * m1)
         k1 = -(-max(nr1) // m1)
         for k in range(k1):
@@ -466,6 +467,7 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     with span("kdpt.pairs.pass2"):
         if max_passes >= 2 and F < F2:
             pos2, cnt2, nr2 = _compact_all(unproven, S)
+            add("pairs_unproven", cnt2)
             pos2p = _pad_positions(pos2, -(-ns // m2) * m2)
             hard = torch.zeros((npad,), dtype=torch.bool, device=device)
             k2 = -(-max(nr2) // m2)
@@ -499,6 +501,8 @@ def intersect_mesh_pairs(origin, direction, cm: "cl.ClusterMesh", config,
     tile3 = min(tile, m3, wk.vmem_tile_cap(kp))
     k3 = 0
     with span("kdpt.pairs.pass3"):
+        if max_passes >= 3:
+            add("pairs_walk_rays", unproven)
         if max_passes >= 3 and bool(unproven.any()):  # most waves: nothing left
             pos3, cnt3, nr3 = _compact_all(unproven, S)
             pos3p = _pad_positions(pos3, -(-ns // m3) * m3)

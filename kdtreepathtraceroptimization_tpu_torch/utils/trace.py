@@ -25,7 +25,11 @@ intersectors ``kdpt.pairs.pass1`` .. ``pass3``, ``kdpt.cluster.rounds``,
 sums, for each bounce slot, the wavefront lanes that still carry a path;
 ``geoms_kernel_lanes`` and ``geoms_plain_lanes`` (slot 0) the lanes of
 every ``ops.intersect.intersect_geoms`` call that took its CUDA kernel or
-its plain version.
+its plain version; ``pairs_mesh_active``, ``pairs_unproven`` and
+``pairs_walk_rays`` (slot 0) the rays of every
+``ops.pairs.intersect_mesh_pairs`` call that have a feasible block (pass
+1 takes them), that pass 1 leaves unproven (pass 2 takes them) and that
+pass 3's exhaustive walk takes.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ the H100 run ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q``
 ``chip_smoke.py`` checks the kernels at the main path's shapes; these
 tests cover the other shapes the wrappers accept: tiles whose staging
 needs more than 48 KB of shared memory, 8- to 1024-triangle blocks,
-blocks whose weight runs are not 16-byte aligned, tiles with empty
-feasible lists or only dead rays, walk tiles of several thread blocks,
+the tables of blocks of 512 and 1,024 that meshes past 1,048,576 and
+2,097,152 triangles take, blocks whose weight runs are not 16-byte
+aligned, tiles with empty feasible lists or only dead rays, walk tiles
+of several thread blocks,
 tiles whose rays finish in the first round, 1 to 16 pair slots, block
 tables of 1024 to 8192 blocks (and of 301, whose last extraction group
 is ragged, or with sentinel blocks among real ones), extraction calls of
@@ -398,6 +400,48 @@ def test_pair_runs_kernel_matches_plain(cuda, block, ptile, runs):
     assert bool((tiles[:, 0] >= cm.n_real_blocks).any())
     _check_packed(got, want, blk_s, cm.n_real_blocks)
     assert torch.equal(got, _k7_on(blk_s, featp, cm))
+
+
+@pytest.mark.parametrize("block", [256, 512, 1024])
+def test_pair_path_kernels_on_big_blocks(cuda, block):
+    """Kernels 5, 6, 1, 2 and 3 on the tables of blocks of 512 and 1,024
+    triangles, which meshes past 1,048,576 and 2,097,152 triangles take
+    (icosphere-7, 327,680 triangles, in median-split leaves of 320 or 640
+    padded to the block, as icosphere-8's 1,310,720 are in 4,096 blocks of
+    512), as at 256: each against its plain version with its own test's
+    checks (kernels 5, 1 and 3 bit for bit, both forms of kernel 5; kernel
+    6's loc and t through the packed key's truncation; the walk's ids
+    exactly and t within 1e-5). Kernels 1 and 2 take pass 3's tile at the
+    table's size (``vmem_tile_cap``)."""
+    cm = build_cluster_mesh(_mesh(7), block=block, device=cuda)
+    kreal, kp = cm.n_real_blocks, cm.n_blocks
+    assert cm.block == block and (cm.real[:kreal] < block).any()
+    n = 8192
+    x = _pair_inputs(cm, n, seed=block)
+    want = tpairs._extract_ref(x, cm.slab, cm.blk, 3)
+    for split in (False, True):
+        for a, b in zip(tpairs.extract(x, cm.slab, cm.blk, 3, split), want):
+            assert torch.equal(a, b)
+    ids, _, cnt, feat = want
+    assert int((cnt > 3).sum()) > 0
+    flat = torch.cat([ids.reshape(-1), torch.full((-(n * 3) % 256 + 256,), kp,
+                                                  dtype=torch.int32, device=cuda)])
+    blk_s, src = torch.sort(flat, stable=True)
+    featp = feat[torch.clamp_max(src // 3, n - 1)]
+    got = tpairs.pair_runs(blk_s, featp, cm, 256, kreal)
+    _check_packed(got, tpairs._pair_runs_ref(blk_s, featp, cm.w, block, kreal), blk_s, kreal)
+
+    tile = twalk.vmem_tile_cap(kp)
+    xw, sel, lb, nsel, r, t0, act = _walk_inputs(cm, 8 * tile, tile, seed=block + 1)
+    assert torch.equal(twalk.slab_cull(xw, cm.slab, cm.blk, tile),
+                       twalk._slab_cull_ref(xw, cm.slab, cm.blk, tile))
+    bt_k, btri_k = twalk.walk(sel, lb, nsel, r, t0, act, cm, tile)
+    bt_p, btri_p = twalk._walk_ref(sel, lb, r, t0, act, cm.w, tile, block)
+    assert int((btri_p >= 0).sum()) > tile
+    assert torch.equal(btri_k, btri_p)
+    torch.testing.assert_close(bt_k, bt_p, rtol=1e-5, atol=0)
+    tri = torch.clamp_min(btri_k, 0)
+    assert torch.equal(tmesh.gather_cols(cm.packed, tri), cm.packed[tri.long()].T)
 
 
 def _many_run_pairs(cm, ptile, runs_per_tile, seed):

@@ -465,20 +465,62 @@ def _brute_check(o, d, mesh, hit):
     np.testing.assert_allclose(t_p[~miss_p], t_b[~miss_b], rtol=2e-4, atol=2e-4)
 
 
+def _needles(t: int, seed: int):
+    """``t`` random needle-thin triangles (0.8 long, 0.02 wide) in the
+    cube [-1, 1]^3, and rays aimed through it from 6 units out: every
+    median-split leaf's box spans most of the cube, so each ray enters
+    nearly every block, most blocks it enters hold no hit, and the window
+    of F2 slots leaves many rays unproven for pass 3."""
+    from kdtreepathtraceroptimization_tpu.scene.structs import MeshSoA
+
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (t, 3))
+    u, w = rng.normal(size=(2, t, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    v = np.stack([a, a + 0.8 * u, a + 0.8 * u + 0.02 * w], 1).astype(np.float32)
+    nrm = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True) + 1e-12
+    mesh = MeshSoA(v0=v[:, 0], v1=v[:, 1], v2=v[:, 2], n0=nrm, n1=nrm, n2=nrm,
+                   material_id=np.zeros(t, np.int32), shape_id=np.zeros(t, np.int32),
+                   shape_bbox_min=v.min((0, 1))[None], shape_bbox_max=v.max((0, 1))[None])
+    return mesh
+
+
+def _needle_rays(n, seed):
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(n, 3))
+    o = 6.0 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    d = rng.uniform(-0.7, 0.7, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
 @pytest.mark.parametrize("case", [
     # (subdiv, block, rays, F, ray set): slot 1 with grazing rays on a
     # 2048-block table (kp > 1024) leaves rays for pass 3; 768 grazing
-    # rays, all mesh-active, take three narrowing rounds (m1 = 256)
+    # rays, all mesh-active, take three narrowing rounds (m1 = 256).
+    # "needles": 32 blocks of 512 and of 1,024 triangles (the tables
+    # ``load_scene`` builds past 1,048,576 and 2,097,152 triangles, or past
+    # a lowered cap's halves), slot 1: passes 2 and 3 both run
     (3, 64, 4096, 1, "random"),
     (4, 4, 1024, 1, "grazing"),
     (3, 64, 4096, 2, "random"),
     (3, 64, 768, 3, "grazing"),
     (3, 64, 4096, 8, "random"),
+    (None, 512, 1024, 1, "needles"),
+    (None, 1024, 1024, 1, "needles"),
 ])
 def test_pairs_match_jax_and_brute(case):
     subdiv, block, n, F, rays = case
-    mesh, jcm, tcm = _tables(subdiv, block)
-    o, d = _rays(n, seed=n) if rays == "random" else _grazing_rays(n, seed=1)
+    if rays == "needles":
+        mesh = _needles(32 * block, seed=block)
+        jcm, tcm = jbuild(mesh, block=block), tbuild(mesh, block=block, device="cpu")
+        assert tcm.block == block and tcm.n_real_blocks == 32
+        o, d = _needle_rays(n, seed=block + 1)
+    else:
+        mesh, jcm, tcm = _tables(subdiv, block)
+        o, d = _rays(n, seed=n) if rays == "random" else _grazing_rays(n, seed=1)
     kw = dict(cluster_tile=256, pair_slots=F, **PAIRS)
     hit_t, stats = tpairs.intersect_mesh_pairs(_t(o), _t(d), tcm, TCfg(**kw),
                                                collect_stats=True)
@@ -489,6 +531,8 @@ def test_pairs_match_jax_and_brute(case):
     assert (hit_t.tri.numpy() >= 0).sum() > n // 50
     if block == 4:
         assert tcm.n_blocks > 1024 and stats["p3_rounds"] == 1 and stats["pass3_rays"] > 0
+    if rays == "needles":
+        assert stats["unproven_after_pass1"] > n // 2 and stats["pass3_rays"] > n // 32
     if n == 768:
         assert stats["m1"] == 256 and stats["n1_rounds"] == 3
     if F == 1:
